@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""The quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with one CUDA card. It imports the
+port (`src/repro_torch`) and nothing of JAX, and runs these phases in order,
+printing one JSON line for each:
+
+  1. device  — the card, its power limit, the torch and CUDA versions;
+  2. build   — every kernel built from `src/repro_torch/csrc/` with nvcc for
+               sm_90a (one nvcc per source, all started together);
+  3. kernels — each kernel held against its plain PyTorch version on the
+               card, on every registry case and at the main-path shapes of
+               full tinyllama-1.1b, at the registry tolerance; the median
+               device time (CUDA-graph replay between CUDA events, L2
+               flushed) of the kernel, its plain version and one PyTorch
+               library call computing the same function, beside the bound
+               (bytes at the memory rate or operations at the peak rate,
+               whichever is larger), and the kernel's eager per-call time;
+  4. parity  — the smoke model's prefill and decode logits on the card
+               (kernels) against the same weights on the CPU (plain versions);
+  5. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
+               seed, bf16) served by the serve CLI's entry point through the
+               continuous schedule: the kernels' launch counts are zeroed just
+               before and read just after, and every kernel must have run;
+  6. profile — one more round of the same serve under torch.profiler: device
+               time by kernel and the device's busy share.
+
+Then a `kernels` line with every kernel's numbers, the card's name and power
+limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
+Any failure raises and the exit code is not 0; no phase is skipped. Without a
+CUDA device it exits with code 1 before printing any result; alone in a
+directory, without the port beside it, it fails at the import.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the port itself: alone in a directory, the script stops here
+from repro_torch import configs  # noqa: E402
+from repro_torch.core import hal  # noqa: E402
+from repro_torch.core.dispatch import dtype_name  # noqa: E402
+from repro_torch.kernels import native, registry  # noqa: E402
+from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
+from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
+from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_ref)
+from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.scheduler import merge_prefill_caches  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
+
+# the serve phase: 8 lanes, prompts mixing bucket-exact and ragged lengths
+SERVE_LENS = "37,64,100,128,200,256,300,512"
+SERVE_GEN = 32
+SERVE_ROUNDS = 2
+SERVE_MAX_LEN = 512 + SERVE_GEN          # the serve run's cache length
+
+TIMING_REPS = 20
+L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+class Timer:
+    """Median time of one call between CUDA events, with the L2 cache flushed
+    before every call (the serving path reads each layer's weights once per
+    step, from device memory).
+
+    `device_ms` captures the call into a CUDA graph and times its replay: the
+    device's time for the work, without the host's launch overhead.
+    `eager_ms` times the call as the serving path makes it, host overhead
+    included when the host is slower than the device."""
+
+    def __init__(self) -> None:
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def device_ms(self, fn, reps: int = TIMING_REPS) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        ms = self.eager_ms(graph.replay, reps)
+        del graph
+        return ms
+
+    def eager_ms(self, fn, reps: int = TIMING_REPS) -> float:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _compare(out, ref, tol) -> tuple[float, bool]:
+    rtol, atol = tol
+    o, r = out.float(), ref.float()
+    same_inf = torch.equal(torch.isinf(o), torch.isinf(r)) and \
+        torch.equal(o[torch.isinf(o)], r[torch.isinf(r)])
+    fin = torch.isfinite(r)
+    diff = (o[fin] - r[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = same_inf and bool(torch.isfinite(o[fin]).all()) and bool(
+        (diff <= atol + rtol * r[fin].abs()).all())
+    return err, ok
+
+
+def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
+    """(kernel, shape label, inputs) at the shapes full tinyllama-1.1b gives
+    each kernel on the serve path."""
+    dev, bf16 = "cuda", torch.bfloat16
+    d, h, kv, dh, f, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                          cfg.d_ff, cfg.padded_vocab)
+
+    def normal(shape, dtype, std=1.0):
+        return (torch.from_numpy(rng.normal(size=shape) * std)
+                .to(device=dev, dtype=dtype))
+
+    cases = []
+    projections = {"q_o": (d, h * dh), "k_v": (d, kv * dh),
+                   "gate_up": (d, f), "down": (f, d)}
+    for m in (8, 512):
+        for label, (k, n) in projections.items():
+            cases.append(("anemm", f"{label} M={m} {k}->{n} bf16",
+                          {"a": normal((m, k), bf16),
+                           "b": normal((k, n), bf16, k ** -0.5)}))
+    for m in (1, 8):    # the fp32 head: prefill's last token, decode's lanes
+        cases.append(("anemm", f"head M={m} {d}->{v} fp32",
+                      {"a": normal((m, d), torch.float32),
+                       "b": normal((d, v), torch.float32, d ** -0.5)}))
+    L = 512
+    cases.append(("flash", f"causal L={L} H={h} KV={kv} d={dh} bf16",
+                  {"q": normal((1, h, L, dh), bf16), "k": normal((1, kv, L, dh), bf16),
+                   "v": normal((1, kv, L, dh), bf16)}))
+    B, S = 8, SERVE_MAX_LEN
+    lens = torch.tensor([int(x) for x in SERVE_LENS.split(",")], dtype=torch.int32,
+                        device=dev) + SERVE_GEN // 2
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    cases.append(("decode_attention", f"B={B} S={S} H={h} KV={kv} d={dh} bf16",
+                  {"q": normal((B, h, dh), bf16),
+                   "k_cache": normal((B, S, kv, dh), bf16),
+                   "v_cache": normal((B, S, kv, dh), bf16),
+                   "positions": torch.where(pos < lens[:, None], pos, -1).contiguous(),
+                   "current": (lens - 1).contiguous()}))
+    return cases
+
+
+def library_call(name: str, i: dict):
+    """One PyTorch call computing the same function (the yardstick only;
+    the port never calls these)."""
+    if name == "anemm":
+        return lambda: torch.matmul(i["a"], i["b"])
+    if name == "flash":
+        return lambda: F.scaled_dot_product_attention(
+            i["q"], i["k"], i["v"], is_causal=True, enable_gqa=True)
+    q = i["q"][:, :, None]
+    k = i["k_cache"].transpose(1, 2)
+    v = i["v_cache"].transpose(1, 2)
+    pos, cur = i["positions"], i["current"]
+    mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_kernels(cfg, timer) -> dict:
+    """Every registry case and every main-path shape: kernel vs plain on the
+    card. Returns the headline record of each kernel."""
+    rng = np.random.default_rng(0)
+    target = hal.H100
+    failures = []
+
+    def check(spec, label, inputs, timed: bool):
+        out = spec.run_kernel(inputs)
+        ref = spec.run_oracle(inputs)
+        torch.cuda.synchronize()
+        dtype = next(t.dtype for t in inputs.values() if t.is_floating_point())
+        tol = spec.tol(dtype)
+        err, ok = _compare(out, ref, tol)
+        rec = {"kernel": spec.name, "shape": label, "max_abs_err": err,
+               "tol": list(tol), "ok": ok}
+        if timed:
+            ops, nbytes = spec.work(inputs)
+            t_ops = ops / target.peak_for(dtype_name(dtype))
+            t_bytes = nbytes / target.hbm_bandwidth
+            rec.update({
+                "ms": timer.device_ms(lambda: spec.run_kernel(inputs)),
+                "eager_ms": timer.eager_ms(lambda: spec.run_kernel(inputs)),
+                "plain_ms": timer.device_ms(lambda: spec.run_oracle(inputs)),
+                "library_ms": timer.device_ms(library_call(spec.name, inputs)),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "ops": ops, "bytes": nbytes})
+        emit("kernel", **rec)
+        if not ok:
+            failures.append(f"{spec.name} {label}: max_abs_err {err} tol {tol}")
+        return rec
+
+    for spec in registry.all_specs():
+        for dtype in spec.dtypes:
+            for case in spec.cases:
+                inputs = spec.make_inputs(case, dtype, rng, "cuda")
+                check(spec, f"registry {case.name} {dtype_name(dtype)}", inputs, False)
+    # anemm's epilogue: per-N scale, bias, and saturation hit on purpose
+    mm = registry.get("anemm")
+    for dtype in mm.dtypes:
+        i = mm.make_inputs(mm.cases[2], dtype, rng, "cuda")
+        n = i["b"].shape[1]
+        i["a"][0] *= 4000.0                      # rows past the 2^15 ceiling
+        scale = torch.linspace(0.5, 2.0, n, device="cuda")
+        bias = torch.linspace(-1.0, 1.0, n, device="cuda")
+        ep = dataclasses.replace(mm, run_kernel=lambda i: anemm(
+            i["a"], i["b"], scale, bias, ane_mode=True), run_oracle=lambda i: anemm_ref(
+            i["a"], i["b"], scale, bias, ane_mode=True))
+        check(ep, f"epilogue scale+bias+ane_mode {dtype_name(dtype)}", i, False)
+    # the sliding-window mask, which the registry cases leave off
+    fl, dec = registry.get("flash"), registry.get("decode_attention")
+    for dtype in dec.dtypes:
+        i = fl.make_inputs(fl.cases[0], dtype, rng, "cuda")
+        win = dataclasses.replace(
+            fl, run_kernel=lambda i: flash_attention(i["q"], i["k"], i["v"], window=24),
+            run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], window=24))
+        check(win, f"window=24 {dtype_name(dtype)}", i, False)
+        i = dec.make_inputs(dec.cases[0], dtype, rng, "cuda")
+        names = ("q", "k_cache", "v_cache", "positions", "current")
+        win = dataclasses.replace(
+            dec, run_kernel=lambda i: decode_attention(*(i[k] for k in names), window=24),
+            run_oracle=lambda i: decode_attention_ref(*(i[k] for k in names), window=24))
+        check(win, f"window=24 {dtype_name(dtype)}", i, False)
+
+    headline = {}
+    for name, label, inputs in main_path_inputs(cfg, rng):
+        rec = check(registry.get(name), "main " + label, inputs, True)
+        headline.setdefault(name, rec)
+        if name == "anemm" and label.startswith("gate_up M=8"):
+            headline[name] = rec                  # decode-time projection
+    # the fp32 head widens the bf16 unembed on every call (reference
+    # layers.py:158-161): the copy's own device time
+    unembed = torch.empty((cfg.d_model, cfg.padded_vocab), dtype=torch.bfloat16,
+                          device="cuda").normal_()
+    emit("head_widen", shape=list(unembed.shape),
+         ms=timer.device_ms(lambda: unembed.to(torch.float32)),
+         bytes=unembed.numel() * (2 + 4))
+    if failures:
+        raise AssertionError("kernels disagree with their plain versions:\n"
+                             + "\n".join(failures))
+    return headline
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    # fp32 plain versions and library calls in full fp32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         kind=kind, count=torch.cuda.device_count(), python=sys.version.split()[0],
+         bound_target=hal.H100.name, bound_sku_matches=kind == hal.H100.sku)
+
+    built = native.build()
+    ptxas = {n: [ln.strip() for ln in txt.splitlines() if "registers" in ln or "spill" in ln]
+             for n, txt in built["log"].items()}
+    emit("build", seconds=built["seconds"], built=built["built"], ptxas=ptxas)
+
+    cfg = configs.get_config("tinyllama-1.1b")
+    headline = check_kernels(cfg, Timer())
+    check_parity()
+    launches = serve_main_path()
+    profile_serve()
+
+    kernels = []
+    for spec in registry.all_specs():
+        rec = headline[spec.name]
+        kernels.append({
+            "name": spec.name, "route": "cuda", "source": spec.source,
+            "replaces": spec.replaces, "launches": launches[spec.name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def check_parity() -> None:
+    """The smoke model, same weights, on the card (kernels) and on the CPU
+    (plain versions): prefill and three teacher-forced decode steps must
+    agree at 4x the anemm registry tolerance."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(configs.get_smoke("tinyllama-1.1b"), dtype=dtype)
+        cpu = build_model(cfg, device="cpu")
+        gpu = build_model(cfg, device="cuda")
+        params_cpu = cpu.init(torch.Generator().manual_seed(0))
+        params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+        rtol, atol = (4 * x for x in registry.get("anemm").tol(gpu.dtype))
+        tokens = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(1))
+        c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens})
+        c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda()})
+        errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
+        torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
+        c_cpu = merge_prefill_caches(cpu.init_cache(2, 32), c_cpu)
+        c_gpu = merge_prefill_caches(gpu.init_cache(2, 32), c_gpu)
+        tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        for i in range(3):
+            pos = torch.full((2,), 24 + i, dtype=torch.int32)
+            c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
+            c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
+            if not bool(torch.isfinite(d_gpu).all()):
+                raise AssertionError(f"{cfg.name} {dtype}: non-finite decode logits")
+            errs.append(float((d_gpu.cpu() - d_cpu).abs().max()))
+            torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
+            tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        emit("parity", config=cfg.name, dtype=dtype, max_abs_err=max(errs),
+             tol=[rtol, atol], ok=True)
+
+
+def serve_main_path() -> dict:
+    """Full tinyllama-1.1b through the serve CLI's entry point; returns the
+    kernels' launch counts from this run alone."""
+    cfg = configs.get_config("tinyllama-1.1b")
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    out = serve.run(serve_argv(cfg, SERVE_ROUNDS))
+    launches = native.launch_counts()
+
+    tokens = out["tokens"]
+    n_lanes = len(SERVE_LENS.split(","))
+    if tokens.shape != (n_lanes, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"serve tokens: shape {tokens.shape}, range "
+                             f"[{tokens.min()}, {tokens.max()}]")
+    backends = {b for _, b in out["routes"]}
+    if backends != {"cuda"}:
+        raise AssertionError(f"serve routes {out['routes']}: every route must be cuda")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
+    # the run ends on a decode step: its key is the decode program's; every
+    # other program key is a prefill bucket's
+    recs = out["records"]
+    decode_key = recs[-1].key
+    by_kind: dict[str, list[float]] = {}
+    for r in recs:
+        kind = r.key if r.key in ("admit_slot", "reset_slot") else \
+            "decode" if r.key == decode_key else "prefill"
+        by_kind.setdefault(kind, []).append(r.wall_s)
+    dispatches = {k: {"n": len(w), "wall_s": sum(w), "median_ms": statistics.median(w) * 1e3}
+                  for k, w in by_kind.items()}
+    emit("serve", config=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
+         lanes=n_lanes, prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=SERVE_ROUNDS,
+         tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], build_s=out["build_s"],
+         n_dispatches=out["n_dispatches"], dispatches=dispatches,
+         cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
+         floor_measured_s=out["floor_measured_s"],
+         dispatch_wall_s=out["dispatch_wall_s"], work_s=out["work_s"],
+         routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+         launches=launches,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def serve_argv(cfg, rounds: int) -> list[str]:
+    return ["--arch", cfg.name, "--schedule", "continuous", "--batch", "8",
+            "--prompt-lens", SERVE_LENS, "--gen", str(SERVE_GEN),
+            "--requests", str(rounds), "--seed", "0", "--device", "cuda"]
+
+
+def profile_serve() -> None:
+    """One round of the serve phase with the profiler tracing the device
+    only: device time by kernel, and the device's busy share between the
+    first and the last kernel of the round (its complement is the time the
+    card sat idle waiting for the host). Tracing slows the host a little, so
+    the profiled round's wall is reported beside it."""
+    cfg = configs.get_config("tinyllama-1.1b")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = serve.run(serve_argv(cfg, 1))
+    kernels = [(e.time_range.start, e.time_range.end,
+                e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+                .split("(")[0].split("<")[0])
+               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the served round starts at the first of the port's kernels (before it:
+    # weight init and the floor measurement)
+    ours = [s for s, _, n in kernels if n.startswith(("anemm", "flash_fwd", "decode_fwd"))]
+    first = min(ours) if ours else 0.0
+    spans, by_name = [], {}
+    for start, end, name in kernels:
+        if start >= first:
+            spans.append((start, end))
+            by_name[name] = by_name.get(name, 0.0) + (end - start)
+    busy = 0.0
+    if spans:
+        spans.sort()
+        cur_s, cur_e = spans[0]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        window = max(e for _, e in spans) - first
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit("profile", device_events=len(spans), profiled_wall_s=out["wall_s"],
+         device_busy_ms=busy / 1e3,
+         device_busy_share=busy / window if spans else None,
+         window_ms=window / 1e3 if spans else None,
+         device_ms_by_kernel={k: v / 1e3 for k, v in top})
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,243 @@
+"""Kernel registry of the port: each ported kernel with its plain version.
+
+After `src/repro/kernels/registry.py`. Each row mirrors the reference's
+`KernelSpec`: the same name, the same shape classes (names, dims and `edge`
+flags), the same dtypes and the same tolerance function, so a test can hold
+one registry against the other. A row also names its CUDA source and the
+Pallas kernel it replaces, and counts the work its inputs need (operations
+and bytes), from which `chip_smoke.py` computes each kernel's bound.
+
+Rows: `anemm` (reference :149), `flash` (:287), `decode_attention` (:332).
+The other reference rows are still to be ported (ROADMAP queue B).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Spec types
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCase:
+    """One named shape class of a kernel's sweep; `edge=True` marks
+    padding/alignment stress cases (ragged extents, tiny dims)."""
+
+    name: str
+    dims: tuple[int, ...]
+    edge: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One kernel's row: its entry points, sweep, tolerance and work."""
+
+    name: str
+    dtypes: tuple[torch.dtype, ...]
+    cases: tuple[ShapeCase, ...]
+    # (case, dtype, numpy Generator, device) -> input bundle
+    make_inputs: Callable[[ShapeCase, torch.dtype, np.random.Generator, Any], dict]
+    run_kernel: Callable[[dict], torch.Tensor]
+    run_oracle: Callable[[dict], torch.Tensor]   # the plain PyTorch version
+    tol: Callable[[torch.dtype], tuple[float, float]]   # dtype -> (rtol, atol)
+    work: Callable[[dict], tuple[float, float]]   # inputs -> (operations, bytes)
+    source: str                                   # the CUDA source in this repo
+    replaces: str                                 # file:line of the TPU kernel
+
+
+_REGISTRY: dict[str, KernelSpec] = {}
+
+
+def register(spec: KernelSpec) -> KernelSpec:
+    if spec.name in _REGISTRY:
+        raise ValueError(f"kernel {spec.name!r} registered twice")
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> KernelSpec:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown kernel {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def all_specs() -> list[KernelSpec]:
+    return [_REGISTRY[k] for k in sorted(_REGISTRY)]
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+
+def _normal(rng: np.random.Generator, shape, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(rng.normal(size=shape)).to(device=device, dtype=dtype)
+
+
+def _mm_tol(dtype) -> tuple[float, float]:
+    # fp32 tolerance covers blocked-K accumulation-order differences; narrow
+    # dtypes add one rounding at the store (reference :120)
+    return (1e-3, 1e-3) if dtype == torch.float32 else (2.5e-2, 2.5e-2)
+
+
+def _flash_tol(dtype) -> tuple[float, float]:
+    return (2e-3, 2e-3) if dtype == torch.float32 else (3e-2, 3e-2)   # reference :272
+
+
+def _nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+# ---------------------------------------------------------------------------
+# anemm — blocked matmul with the ANE-mode epilogue
+# ---------------------------------------------------------------------------
+
+
+def _anemm_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    m, k, n = case.dims
+    return {"a": _normal(rng, (m, k), dtype, device),
+            "b": _normal(rng, (k, n), dtype, device)}
+
+
+def _anemm_work(i: dict) -> tuple[float, float]:
+    (m, k), n = i["a"].shape, i["b"].shape[1]
+    out_bytes = m * n * i["a"].element_size()
+    return 2.0 * m * k * n, _nbytes(i["a"], i["b"]) + out_bytes
+
+
+def _register_anemm() -> None:
+    from repro_torch.kernels.anemm.anemm import anemm
+    from repro_torch.kernels.anemm.ref import anemm_ref
+
+    register(KernelSpec(
+        name="anemm",
+        dtypes=(torch.float32, torch.bfloat16, torch.float16),
+        cases=(
+            ShapeCase("aligned", (128, 512, 128)),
+            ShapeCase("tall", (256, 256, 64)),
+            ShapeCase("ragged", (200, 300, 100), edge=True),
+            ShapeCase("tiny", (8, 32, 8), edge=True),
+            ShapeCase("vector", (1, 384, 16), edge=True),
+            ShapeCase("off_block", (129, 257, 130), edge=True),
+        ),
+        make_inputs=_anemm_inputs,
+        run_kernel=lambda i: anemm(i["a"], i["b"]),
+        run_oracle=lambda i: anemm_ref(i["a"], i["b"]),
+        tol=_mm_tol,
+        work=_anemm_work,
+        source="src/repro_torch/csrc/anemm.cu",
+        replaces="src/repro/kernels/anemm/anemm.py:69",
+    ))
+
+
+# ---------------------------------------------------------------------------
+# flash — fused attention, online softmax
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    b, h, kvh, sq, skv, d = case.dims
+    return {"q": _normal(rng, (b, h, sq, d), dtype, device),
+            "k": _normal(rng, (b, kvh, skv, d), dtype, device),
+            "v": _normal(rng, (b, kvh, skv, d), dtype, device)}
+
+
+def causal_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal mask allows: query i sees keys 0..i."""
+    q = np.arange(sq)
+    return int(np.minimum(q + 1, skv).sum())
+
+
+def _flash_work(i: dict) -> tuple[float, float]:
+    b, h, sq, d = i["q"].shape
+    skv = i["k"].shape[2]
+    ops = 4.0 * b * h * d * causal_pairs(sq, skv)
+    return ops, 2.0 * _nbytes(i["q"]) + _nbytes(i["k"], i["v"])   # q in, out
+
+
+def _register_flash() -> None:
+    from repro_torch.kernels.flash.flash_attention import flash_attention
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    register(KernelSpec(
+        name="flash",
+        dtypes=(torch.float32, torch.bfloat16, torch.float16),
+        cases=(
+            # dims = (B, H, KVH, Sq, Skv, d)
+            ShapeCase("gqa", (2, 4, 2, 128, 128, 64)),
+            ShapeCase("mha", (1, 4, 4, 128, 128, 32)),
+            ShapeCase("ragged", (1, 2, 2, 100, 100, 32), edge=True),
+            ShapeCase("odd_len", (1, 2, 1, 77, 77, 16), edge=True),
+        ),
+        make_inputs=_flash_inputs,
+        run_kernel=lambda i: flash_attention(i["q"], i["k"], i["v"], causal=True),
+        run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], causal=True),
+        tol=_flash_tol,
+        work=_flash_work,
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash/flash_attention.py:93",
+    ))
+
+
+# ---------------------------------------------------------------------------
+# decode_attention — one-token GQA decode against a long cache
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    b, h, kvh, s, d, length = case.dims
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    return {"q": _normal(rng, (b, h, d), dtype, device),
+            "k_cache": _normal(rng, (b, s, kvh, d), dtype, device),
+            "v_cache": _normal(rng, (b, s, kvh, d), dtype, device),
+            "positions": torch.where(pos < length, pos, -1).contiguous(),
+            "current": torch.full((b,), length - 1, dtype=torch.int32, device=device)}
+
+
+def _decode_work(i: dict) -> tuple[float, float]:
+    """Counts the slots this run's positions make valid: an invalid slot's
+    K/V row need not be read at all."""
+    b, h, d = i["q"].shape
+    kvh = i["k_cache"].shape[2]
+    pos, cur = i["positions"], i["current"]
+    n_valid = int(((pos >= 0) & (pos <= cur[:, None])).sum())
+    row_bytes = kvh * d * i["k_cache"].element_size()
+    return (4.0 * h * d * n_valid,
+            2.0 * _nbytes(i["q"]) + _nbytes(pos, cur) + 2.0 * n_valid * row_bytes)
+
+
+def _register_decode() -> None:
+    from repro_torch.kernels.flash.decode_attention import (decode_attention,
+                                                            decode_attention_ref)
+
+    register(KernelSpec(
+        name="decode_attention",
+        dtypes=(torch.float32, torch.bfloat16),
+        cases=(
+            # dims = (B, H, KVH, S, d, written_length)
+            ShapeCase("gqa", (2, 8, 2, 256, 64, 200)),
+            ShapeCase("mha", (1, 4, 4, 128, 32, 100)),
+            ShapeCase("ragged", (3, 4, 2, 96, 64, 50), edge=True),
+            ShapeCase("short_cache", (2, 4, 1, 24, 16, 9), edge=True),
+        ),
+        make_inputs=_decode_inputs,
+        run_kernel=lambda i: decode_attention(
+            i["q"], i["k_cache"], i["v_cache"], i["positions"], i["current"]),
+        run_oracle=lambda i: decode_attention_ref(
+            i["q"], i["k_cache"], i["v_cache"], i["positions"], i["current"]),
+        tol=_flash_tol,
+        work=_decode_work,
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/flash/decode_attention.py:67",
+    ))
+
+
+_register_anemm()
+_register_flash()
+_register_decode()

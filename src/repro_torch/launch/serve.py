@@ -1,0 +1,136 @@
+"""The port's serve CLI: a thin front end over the continuous-batching scheduler.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --batch 8 --prompt-lens 37,64,100,128,200,256,300,512 --gen 32
+
+After `src/repro/launch/serve.py:119-419`. The model is built on the chosen
+device with a `KernelDispatcher`: on `--device cuda` (the default) every
+projection, MLP, logits and attention cell runs the port's hand-written CUDA
+kernels, built first with nvcc if missing; `--device cpu` runs their plain
+PyTorch versions. Without a CUDA device and without `--device cpu` the CLI
+exits with an error instead of falling back.
+
+Weights are random, drawn from a `torch.Generator` seeded with `--seed`;
+prompts are drawn with numpy from the same seed, as the reference draws
+them. The report line is the reference's, followed by the measured dispatch
+floor, the route census and each kernel's launch count.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
+from repro_torch.kernels import native
+from repro_torch.launch.scheduler import SAMPLING_MODES, SCHEDULES, Request
+from repro_torch.models.model import build_model
+
+WEIGHT_FORMS = ("fp16",)
+
+
+def run(argv=None) -> dict:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced same-family config of the CPU tests")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="decode lanes (continuous) / requests per round")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--prompt-lens", default="",
+                    help="comma-separated per-request prompt lengths "
+                         "(heterogeneous round; overrides --prompt-len)")
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--schedule", default="continuous", choices=sorted(SCHEDULES),
+                    help="continuous = slot-masked batched decode with mid-flight "
+                         "admission; sequential = one request at a time (parity "
+                         "reference)")
+    ap.add_argument("--sampling", default="greedy", choices=SAMPLING_MODES)
+    ap.add_argument("--weight-form", default="fp16", choices=WEIGHT_FORMS,
+                    help="stored weight form (packed forms are not ported yet)")
+    ap.add_argument("--requests", type=int, default=1,
+                    help="identical request rounds; round 2+ must hit the "
+                         "program cache")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda = the hand-written kernels; cpu = their plain "
+                         "PyTorch versions")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("--device cuda: no CUDA device is available "
+                 "(pass --device cpu to run the plain versions on the CPU)")
+
+    build_s = 0.0
+    if args.device == "cuda":
+        build_s = native.build()["seconds"]
+    device = torch.device(args.device)
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+    dispatcher = KernelDispatcher()
+    model = build_model(cfg, dispatcher, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+
+    lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
+            else [args.prompt_len] * args.batch)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32) for L in lens]
+    max_len = max(lens) + args.gen
+
+    program_cache = ProgramCache()
+    stream = ExecutionStream(program_cache, device=device)
+    kw = {"n_slots": args.batch} if args.schedule == "continuous" else {}
+    engine = SCHEDULES[args.schedule](model, params, cfg, max_len=max_len,
+                                      sampling=args.sampling, stream=stream, **kw)
+
+    results = []
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(max(args.requests, 1)):
+        reqs = [Request(rid=r * len(lens) + i, prompt=prompts[i], max_new_tokens=args.gen)
+                for i in range(len(lens))]
+        results = engine.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+
+    n_requests = len(lens) * max(args.requests, 1)
+    stats = engine.stats(n_requests)
+    # eager: no compile phase, so the ex-compile wall is the wall
+    serve_wall = max(wall, 1e-9)
+    routes = dispatcher.census()
+    out = {
+        "tokens": np.stack([r.tokens for r in results]),
+        "schedule": args.schedule,
+        "sampling": args.sampling,
+        "device": str(device),
+        "build_s": build_s,
+        "wall_s": wall,
+        "tok_per_s": args.gen * n_requests / serve_wall,
+        "cache_hits": program_cache.stats.hits,
+        "cache_misses": program_cache.stats.misses,
+        "floor_measured_s": stream.floor_s,
+        "results": results,
+        "routes": routes,
+        "launches": launches,
+        "records": list(stream.records),
+        **stats,
+    }
+    print(f"{args.schedule} x {args.sampling}: {n_requests} requests "
+          f"(lens {lens}) gen {args.gen}: {wall*1e3:.1f} ms "
+          f"({serve_wall*1e3:.1f} ms ex-compile, {out['tok_per_s']:.1f} "
+          f"tok/s) | {stats['n_dispatches']} "
+          f"dispatches, floor/request "
+          f"{stats['per_request_dispatch_overhead_s']*1e6:.1f} us | "
+          f"program cache h{program_cache.stats.hits}/"
+          f"m{program_cache.stats.misses}")
+    census = ", ".join(f"{k}/{b}: {n}" for (k, b), n in sorted(routes.items()))
+    print(f"device {device} | measured floor {stream.floor_s*1e6:.1f} us/dispatch | "
+          f"routes {census} | kernel launches "
+          + ", ".join(f"{k}: {n}" for k, n in launches.items()))
+    return out
+
+
+if __name__ == "__main__":
+    run()
