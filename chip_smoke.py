@@ -19,12 +19,16 @@ printing one JSON line for each:
                (bytes at the memory rate or operations at the peak rate,
                whichever is larger), and the kernel's eager per-call time;
   4. parity  — the smoke model's prefill and decode logits on the card
-               (kernels) against the same weights on the CPU (plain versions);
+               (kernels) against the same weights on the CPU (plain versions),
+               dense and packed (int4_palette, sparse), fp32 and bf16;
   5. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
                seed, bf16) served by the serve CLI's entry point through the
-               continuous schedule: the kernels' launch counts are zeroed just
-               before and read just after, and every kernel must have run;
-  6. profile — one more round of the same serve under torch.profiler: device
+               continuous schedule, once per weight form: fp16 (dense, anemm),
+               int4_palette (palette) and sparse (sparse), each packed on the
+               card after init. Each run's launch counts are zeroed just
+               before and read just after; every route must be cuda and each
+               of the run's kernels must have launched its expected count;
+  6. profile — one more round of each serve under torch.profiler: device
                time by kernel and the device's busy share.
 
 Then a `kernels` line with every kernel's numbers, the card's name and power
@@ -64,7 +68,9 @@ from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.scheduler import merge_prefill_caches  # noqa: E402
+from repro_torch.models import dispatched as dsp  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim.compression import compress_model_params  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
 # the serve phase: 8 lanes, prompts mixing bucket-exact and ragged lengths
@@ -72,6 +78,11 @@ SERVE_LENS = "37,64,100,128,200,256,300,512"
 SERVE_GEN = 32
 SERVE_ROUNDS = 2
 SERVE_MAX_LEN = 512 + SERVE_GEN          # the serve run's cache length
+# weight form -> the kernel that runs its every matmul on the serve path
+FORM_KERNEL = {"fp16": "anemm", **{f.value: k.kernel for f, k in dsp.FORM_KERNELS.items()}}
+# packed kernel -> its form's pack / unpack / wrapper (models.dispatched)
+PACKED = {k.kernel: k for k in dsp.FORM_KERNELS.values()}
+NAMED_RECORDS = ("admit_slot", "reset_slot", "merge_prefill")   # lane writes
 
 TIMING_REPS = 20
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
@@ -168,15 +179,22 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
     cases = []
     projections = {"q_o": (d, h * dh), "k_v": (d, kv * dh),
                    "gate_up": (d, f), "down": (f, d)}
-    for m in (8, 512):
-        for label, (k, n) in projections.items():
-            cases.append(("anemm", f"{label} M={m} {k}->{n} bf16",
-                          {"a": normal((m, k), bf16),
-                           "b": normal((k, n), bf16, k ** -0.5)}))
-    for m in (1, 8):    # the fp32 head: prefill's last token, decode's lanes
-        cases.append(("anemm", f"head M={m} {d}->{v} fp32",
-                      {"a": normal((m, d), torch.float32),
-                       "b": normal((d, v), torch.float32, d ** -0.5)}))
+    # the packed forms, packed on the card as the serve path packs them
+    packed = {}
+    for k, n in list(projections.values()) + [(d, v)]:
+        w = normal((k, n), torch.float32, k ** -0.5)
+        packed[k, n] = {name: form.pack(w) for name, form in PACKED.items()}
+    shapes = [(label, m, k, n, bf16) for m in (8, 512)
+              for label, (k, n) in projections.items()]
+    # the fp32 head: prefill's last token, decode's lanes
+    shapes += [("head", m, d, v, torch.float32) for m in (1, 8)]
+    for name in ("anemm", *PACKED):
+        for label, m, k, n, dtype in shapes:
+            a = normal((m, k), dtype)
+            weights = ({"b": normal((k, n), dtype, k ** -0.5)} if name == "anemm"
+                       else packed[k, n][name])
+            cases.append((name, f"{label} M={m} {k}->{n} {dtype_name(dtype)}",
+                          {"a": a, **weights}))
     L = 512
     cases.append(("flash", f"causal L={L} H={h} KV={kv} d={dh} bf16",
                   {"q": normal((1, h, L, dh), bf16), "k": normal((1, kv, L, dh), bf16),
@@ -196,9 +214,14 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
 
 def library_call(name: str, i: dict):
     """One PyTorch call computing the same function (the yardstick only;
-    the port never calls these)."""
+    the port never calls these). For the packed rows it is `torch.matmul`
+    on the weight decoded beforehand, in the activation's dtype: the
+    reference's FOLD path, which moves the dense weight's bytes."""
     if name == "anemm":
         return lambda: torch.matmul(i["a"], i["b"])
+    if name in PACKED:
+        w = PACKED[name].unpack(*PACKED[name].args(i)).to(i["a"].dtype)
+        return lambda: torch.matmul(i["a"], w)
     if name == "flash":
         return lambda: F.scaled_dot_product_attention(
             i["q"], i["k"], i["v"], is_causal=True, enable_gqa=True)
@@ -280,7 +303,7 @@ def check_kernels(cfg, timer) -> dict:
     for name, label, inputs in main_path_inputs(cfg, rng):
         rec = check(registry.get(name), "main " + label, inputs, True)
         headline.setdefault(name, rec)
-        if name == "anemm" and label.startswith("gate_up M=8"):
+        if label.startswith("gate_up M=8"):
             headline[name] = rec                  # decode-time projection
     # the fp32 head widens the bf16 unembed on every call (reference
     # layers.py:158-161): the copy's own device time
@@ -323,8 +346,14 @@ def main() -> int:
     cfg = configs.get_config("tinyllama-1.1b")
     headline = check_kernels(cfg, Timer())
     check_parity()
-    launches = serve_main_path()
-    profile_serve()
+    # each kernel's launches come from the serve run whose path uses it
+    launches = {}
+    for form in FORM_KERNEL:
+        run = serve_main_path(form)
+        kernels_of_run = ("anemm", "flash", "decode_attention") if form == "fp16" \
+            else (FORM_KERNEL[form],)
+        launches.update({k: run[k] for k in kernels_of_run})
+        profile_serve(form)
 
     kernels = []
     for spec in registry.all_specs():
@@ -346,71 +375,92 @@ def main() -> int:
 
 def check_parity() -> None:
     """The smoke model, same weights, on the card (kernels) and on the CPU
-    (plain versions): prefill and three teacher-forced decode steps must
-    agree at 4x the anemm registry tolerance."""
-    for dtype in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(configs.get_smoke("tinyllama-1.1b"), dtype=dtype)
-        cpu = build_model(cfg, device="cpu")
-        gpu = build_model(cfg, device="cuda")
-        params_cpu = cpu.init(torch.Generator().manual_seed(0))
-        params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
-        rtol, atol = (4 * x for x in registry.get("anemm").tol(gpu.dtype))
-        tokens = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
-                               generator=torch.Generator().manual_seed(1))
-        c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens})
-        c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda()})
-        errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
-        torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
-        c_cpu = merge_prefill_caches(cpu.init_cache(2, 32), c_cpu)
-        c_gpu = merge_prefill_caches(gpu.init_cache(2, 32), c_gpu)
-        tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
-        for i in range(3):
-            pos = torch.full((2,), 24 + i, dtype=torch.int32)
-            c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
-            c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
-            if not bool(torch.isfinite(d_gpu).all()):
-                raise AssertionError(f"{cfg.name} {dtype}: non-finite decode logits")
-            errs.append(float((d_gpu.cpu() - d_cpu).abs().max()))
-            torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
-            tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
-        emit("parity", config=cfg.name, dtype=dtype, max_abs_err=max(errs),
-             tol=[rtol, atol], ok=True)
+    (plain versions), dense and in both packed forms (packed once, on the
+    CPU, so both sides run the same payload): prefill and three
+    teacher-forced decode steps must agree at 4x the tolerance of the row
+    that streams the weights."""
+    for form, kernel in FORM_KERNEL.items():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_smoke("tinyllama-1.1b"), dtype=dtype)
+            cpu = build_model(cfg, device="cpu")
+            gpu = build_model(cfg, device="cuda")
+            params_cpu = cpu.init(torch.Generator().manual_seed(0))
+            if form != "fp16":
+                params_cpu = compress_model_params(params_cpu, form)
+            params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+            rtol, atol = (4 * x for x in registry.get(kernel).tol(gpu.dtype))
+            tokens = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(1))
+            c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens})
+            c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda()})
+            errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
+            torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
+            c_cpu = merge_prefill_caches(cpu.init_cache(2, 32), c_cpu)
+            c_gpu = merge_prefill_caches(gpu.init_cache(2, 32), c_gpu)
+            tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+            for i in range(3):
+                pos = torch.full((2,), 24 + i, dtype=torch.int32)
+                c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
+                c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
+                if not bool(torch.isfinite(d_gpu).all()):
+                    raise AssertionError(f"{cfg.name} {form} {dtype}: non-finite decode logits")
+                errs.append(float((d_gpu.cpu() - d_cpu).abs().max()))
+                torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
+                tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+            routes = {k for k, _ in gpu.dispatcher.census()}
+            if routes != {kernel, "flash", "decode_attention"}:
+                raise AssertionError(f"{form} {dtype}: card routes {routes}")
+            emit("parity", config=cfg.name, weight_form=form, dtype=dtype,
+                 max_abs_err=max(errs), tol=[rtol, atol], ok=True)
 
 
-def serve_main_path() -> dict:
-    """Full tinyllama-1.1b through the serve CLI's entry point; returns the
-    kernels' launch counts from this run alone."""
+def serve_main_path(form: str) -> dict:
+    """Full tinyllama-1.1b in weight form `form` through the serve CLI's
+    entry point; returns the kernels' launch counts from this run alone,
+    after checking them: every route is cuda, the form's matmul kernel ran
+    once per matmul of every forward (7 per layer plus the head) and no
+    other matmul kernel ran, flash once per layer of every prefill and
+    decode_attention once per layer of every decode step."""
     cfg = configs.get_config("tinyllama-1.1b")
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
-    out = serve.run(serve_argv(cfg, SERVE_ROUNDS))
+    out = serve.run(serve_argv(cfg, SERVE_ROUNDS, form))
     launches = native.launch_counts()
 
     tokens = out["tokens"]
     n_lanes = len(SERVE_LENS.split(","))
     if tokens.shape != (n_lanes, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
-        raise AssertionError(f"serve tokens: shape {tokens.shape}, range "
+        raise AssertionError(f"{form} serve tokens: shape {tokens.shape}, range "
                              f"[{tokens.min()}, {tokens.max()}]")
     backends = {b for _, b in out["routes"]}
     if backends != {"cuda"}:
-        raise AssertionError(f"serve routes {out['routes']}: every route must be cuda")
-    idle = [k for k, n in launches.items() if n == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"{form} serve routes {out['routes']}: every route must be cuda")
     # the run ends on a decode step: its key is the decode program's; every
     # other program key is a prefill bucket's
     recs = out["records"]
     decode_key = recs[-1].key
     by_kind: dict[str, list[float]] = {}
     for r in recs:
-        kind = r.key if r.key in ("admit_slot", "reset_slot") else \
+        kind = r.key if r.key in NAMED_RECORDS else \
             "decode" if r.key == decode_key else "prefill"
         by_kind.setdefault(kind, []).append(r.wall_s)
+    n_prefill, n_decode = len(by_kind["prefill"]), len(by_kind["decode"])
+    matmuls_per_forward = 7 * cfg.n_layers + 1
+    want = {k: 0 for k in launches}
+    want.update({FORM_KERNEL[form]: matmuls_per_forward * (n_prefill + n_decode),
+                 "flash": cfg.n_layers * n_prefill,
+                 "decode_attention": cfg.n_layers * n_decode})
+    if launches != want:
+        raise AssertionError(f"{form} serve launches {launches}, expected {want}")
+    census = out["weight_form_census"]
+    if form != "fp16" and census != {form: 8}:   # 7 stacked layer matrices + unembed
+        raise AssertionError(f"{form} packed leaves {census}")
     dispatches = {k: {"n": len(w), "wall_s": sum(w), "median_ms": statistics.median(w) * 1e3}
                   for k, w in by_kind.items()}
-    emit("serve", config=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
-         lanes=n_lanes, prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=SERVE_ROUNDS,
-         tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], build_s=out["build_s"],
+    emit("serve", config=cfg.name, dtype=cfg.dtype, weight_form=form,
+         n_layers=cfg.n_layers, lanes=n_lanes, prompt_lens=SERVE_LENS, gen=SERVE_GEN,
+         rounds=SERVE_ROUNDS, tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+         build_s=out["build_s"], pack_s=out["pack_s"], weight_form_census=census,
          n_dispatches=out["n_dispatches"], dispatches=dispatches,
          cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
          floor_measured_s=out["floor_measured_s"],
@@ -421,28 +471,30 @@ def serve_main_path() -> dict:
     return launches
 
 
-def serve_argv(cfg, rounds: int) -> list[str]:
+def serve_argv(cfg, rounds: int, form: str) -> list[str]:
     return ["--arch", cfg.name, "--schedule", "continuous", "--batch", "8",
             "--prompt-lens", SERVE_LENS, "--gen", str(SERVE_GEN),
-            "--requests", str(rounds), "--seed", "0", "--device", "cuda"]
+            "--requests", str(rounds), "--seed", "0", "--device", "cuda",
+            "--weight-form", form]
 
 
-def profile_serve() -> None:
-    """One round of the serve phase with the profiler tracing the device
-    only: device time by kernel, and the device's busy share between the
-    first and the last kernel of the round (its complement is the time the
-    card sat idle waiting for the host). Tracing slows the host a little, so
-    the profiled round's wall is reported beside it."""
+def profile_serve(form: str) -> None:
+    """One round of the serve phase in weight form `form` with the profiler
+    tracing the device only: device time by kernel, and the device's busy
+    share between the first and the last kernel of the round (its complement
+    is the time the card sat idle waiting for the host). Tracing slows the
+    host a little, so the profiled round's wall is reported beside it."""
     cfg = configs.get_config("tinyllama-1.1b")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = serve.run(serve_argv(cfg, 1))
+        out = serve.run(serve_argv(cfg, 1, form))
     kernels = [(e.time_range.start, e.time_range.end,
                 e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
                 .split("(")[0].split("<")[0])
                for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     # the served round starts at the first of the port's kernels (before it:
     # weight init and the floor measurement)
-    ours = [s for s, _, n in kernels if n.startswith(("anemm", "flash_fwd", "decode_fwd"))]
+    ours = [s for s, _, n in kernels
+            if n.startswith(("repro::tile::matmul", "flash_fwd", "decode_fwd"))]
     first = min(ours) if ours else 0.0
     spans, by_name = [], {}
     for start, end, name in kernels:
@@ -462,7 +514,8 @@ def profile_serve() -> None:
         busy += cur_e - cur_s
         window = max(e for _, e in spans) - first
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", device_events=len(spans), profiled_wall_s=out["wall_s"],
+    emit("profile", weight_form=form, device_events=len(spans),
+         profiled_wall_s=out["wall_s"], profiled_tok_per_s=out["tok_per_s"],
          device_busy_ms=busy / 1e3,
          device_busy_share=busy / window if spans else None,
          window_ms=window / 1e3 if spans else None,

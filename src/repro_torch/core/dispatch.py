@@ -29,13 +29,22 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import hal
+from repro_torch.tree import flatten_node
 
 
 def _spec(x: Any) -> Any:
     """Shape/dtype signature of an argument tree (tensors by shape and dtype,
-    containers recursively, other leaves by type)."""
+    containers recursively, other leaves by type). A node registered with
+    `tree.register_node` (a packed weight) renders as its type, its static
+    data (a packed weight's form) and its children's specs, so program keys
+    tell the weight forms apart, as the reference's jit keys do through the
+    pytree aux data."""
     if isinstance(x, torch.Tensor):
         return ("T", tuple(x.shape), str(x.dtype))
+    node = flatten_node(x)
+    if node is not None:
+        static, children = node
+        return ("N", type(x).__name__, static, _spec(children))
     if isinstance(x, dict):
         return ("D", tuple((k, _spec(v)) for k, v in sorted(x.items())))
     if isinstance(x, (list, tuple)):

@@ -3,7 +3,8 @@
 After `src/repro/core/hal.py` (`Target` at :59), with only the fields this
 port reads: the roofline constants that bound a kernel's time. The
 reference's ANE capability surface (feature bytes, op floors, weight-form
-streaming) is not ported yet; it arrives with `core/capability.py`.
+streaming) is not ported yet; it arrives with `core/capability.py`. The
+`WeightForm` tags of the compressed weights are the reference's (:25).
 
 Every constant carries its provenance: `public` for NVIDIA's data sheet
 values. The per-dispatch floor is not a constant here: it is measured on the
@@ -13,6 +14,17 @@ device (`core.dispatch.measure_dispatch_floor`).
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class WeightForm(enum.Enum):
+    """Compressed-weight forms the datapath reconstructs (paper ch. 7)."""
+
+    FP16 = "fp16"
+    INT8 = "int8"                # per-tensor / per-channel affine
+    INT4_PALETTE = "int4_palette"  # 16-entry codebook, 4-bit indices
+    SPARSE = "sparse"            # 1:2 keep bits + packed fp16 nonzeros
+    BLOCKWISE = "blockwise"      # per-block affine scales
 
 
 @dataclasses.dataclass(frozen=True)

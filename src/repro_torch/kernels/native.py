@@ -57,6 +57,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _I, _P]),
+    "palette": ("palette_matmul.cu", "palette_matmul_launch",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "sparse": ("sparse_matmul.cu", "sparse_matmul_launch",
+               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -7,8 +7,9 @@ one registry against the other. A row also names its CUDA source and the
 Pallas kernel it replaces, and counts the work its inputs need (operations
 and bytes), from which `chip_smoke.py` computes each kernel's bound.
 
-Rows: `anemm` (reference :149), `flash` (:287), `decode_attention` (:332).
-The other reference rows are still to be ported (ROADMAP queue B).
+Rows: `anemm` (reference :149), `palette` (:183), `sparse` (:221), `flash`
+(:287), `decode_attention` (:332). The other reference rows are still to be
+ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -137,6 +138,85 @@ def _register_anemm() -> None:
 
 
 # ---------------------------------------------------------------------------
+# palette / sparse — packed weights decoded at the matrix unit's input
+# ---------------------------------------------------------------------------
+
+
+def _packed_work(i: dict) -> tuple[float, float]:
+    """2·M·K·N operations; bytes of the real tensors: the activation, the
+    packed payload (nibbles + codebook, or values + selector) and the output."""
+    a, payload = i["a"], [t for key, t in i.items() if key != "a"]
+    (m, k), n = a.shape, payload[0].shape[1]
+    return 2.0 * m * k * n, _nbytes(a, *payload) + m * n * a.element_size()
+
+
+def _palette_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    from repro_torch.kernels.palette.palette_matmul import pack_kn
+
+    m, k, n = case.dims
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(device)
+    packed, lut = pack_kn(w, iters=4)
+    return {"a": _normal(rng, (m, k), dtype, device), "packed": packed, "lut": lut}
+
+
+def _register_palette() -> None:
+    from repro_torch.kernels.palette.palette_matmul import palette_matmul
+    from repro_torch.kernels.palette.ref import palette_matmul_ref
+
+    register(KernelSpec(
+        name="palette",
+        dtypes=(torch.float32, torch.bfloat16),
+        cases=(
+            ShapeCase("aligned", (64, 256, 192)),
+            ShapeCase("wide", (128, 512, 256)),
+            ShapeCase("ragged", (32, 130, 72), edge=True),
+            ShapeCase("tiny", (4, 32, 16), edge=True),
+        ),
+        make_inputs=_palette_inputs,
+        run_kernel=lambda i: palette_matmul(i["a"], i["packed"], i["lut"]),
+        run_oracle=lambda i: palette_matmul_ref(i["a"], i["packed"], i["lut"]),
+        tol=_mm_tol,
+        work=_packed_work,
+        source="src/repro_torch/csrc/palette_matmul.cu",
+        replaces="src/repro/kernels/palette/palette_matmul.py:88",
+    ))
+
+
+def _sparse_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    from repro_torch.kernels.sparse.sparse_matmul import pack_pair_sparse
+
+    m, k, n = case.dims
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(device)
+    values, selector = pack_pair_sparse(w)
+    return {"a": _normal(rng, (m, k), dtype, device), "values": values,
+            "selector": selector}
+
+
+def _register_sparse() -> None:
+    from repro_torch.kernels.sparse.ref import sparse_matmul_ref
+    from repro_torch.kernels.sparse.sparse_matmul import sparse_matmul
+
+    register(KernelSpec(
+        name="sparse",
+        dtypes=(torch.float32, torch.bfloat16),
+        cases=(
+            # K must be a multiple of 16 (selector bits pack 8 pairs a byte)
+            ShapeCase("aligned", (64, 256, 192)),
+            ShapeCase("wide", (96, 512, 128)),
+            ShapeCase("ragged", (48, 144, 72), edge=True),
+            ShapeCase("tiny", (8, 32, 16), edge=True),
+        ),
+        make_inputs=_sparse_inputs,
+        run_kernel=lambda i: sparse_matmul(i["a"], i["values"], i["selector"]),
+        run_oracle=lambda i: sparse_matmul_ref(i["a"], i["values"], i["selector"]),
+        tol=_mm_tol,
+        work=_packed_work,
+        source="src/repro_torch/csrc/sparse_matmul.cu",
+        replaces="src/repro/kernels/sparse/sparse_matmul.py:85",
+    ))
+
+
+# ---------------------------------------------------------------------------
 # flash — fused attention, online softmax
 # ---------------------------------------------------------------------------
 
@@ -239,5 +319,7 @@ def _register_decode() -> None:
 
 
 _register_anemm()
+_register_palette()
+_register_sparse()
 _register_flash()
 _register_decode()

@@ -12,14 +12,19 @@ exits with an error instead of falling back.
 
 Weights are random, drawn from a `torch.Generator` seeded with `--seed`;
 prompts are drawn with numpy from the same seed, as the reference draws
-them. The report line is the reference's, followed by the measured dispatch
-floor, the route census and each kernel's launch count.
+them. `--weight-form int4_palette|sparse` packs every eligible matmul weight
+after init, on the model's device (`optim.compression.compress_model_params`),
+and those matmuls then run the `palette` / `sparse` kernels. The report line
+is the reference's, followed by the measured dispatch floor, the route
+census, each kernel's launch count, the packing time and the weight-form
+census.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -29,8 +34,9 @@ from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, Program
 from repro_torch.kernels import native
 from repro_torch.launch.scheduler import SAMPLING_MODES, SCHEDULES, Request
 from repro_torch.models.model import build_model
+from repro_torch.optim.compression import compress_model_params, weight_form_census
 
-WEIGHT_FORMS = ("fp16",)
+WEIGHT_FORMS = ("fp16", "int4_palette", "sparse")
 
 
 def run(argv=None) -> dict:
@@ -52,7 +58,8 @@ def run(argv=None) -> dict:
                          "reference)")
     ap.add_argument("--sampling", default="greedy", choices=SAMPLING_MODES)
     ap.add_argument("--weight-form", default="fp16", choices=WEIGHT_FORMS,
-                    help="stored weight form (packed forms are not ported yet)")
+                    help="stored weight form: fp16 = dense (anemm); int4_palette / "
+                         "sparse = packed after init (palette / sparse kernels)")
     ap.add_argument("--requests", type=int, default=1,
                     help="identical request rounds; round 2+ must hit the "
                          "program cache")
@@ -72,6 +79,14 @@ def run(argv=None) -> dict:
     dispatcher = KernelDispatcher()
     model = build_model(cfg, dispatcher, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    pack_s = 0.0
+    if args.weight_form != "fp16":
+        t0 = time.perf_counter()
+        params = compress_model_params(params, args.weight_form)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        pack_s = time.perf_counter() - t0
+    census = Counter(weight_form_census(params).values())
 
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len] * args.batch)
@@ -105,7 +120,10 @@ def run(argv=None) -> dict:
         "schedule": args.schedule,
         "sampling": args.sampling,
         "device": str(device),
+        "weight_form": args.weight_form,
         "build_s": build_s,
+        "pack_s": pack_s,
+        "weight_form_census": dict(census),
         "wall_s": wall,
         "tok_per_s": args.gen * n_requests / serve_wall,
         "cache_hits": program_cache.stats.hits,
@@ -125,10 +143,12 @@ def run(argv=None) -> dict:
           f"{stats['per_request_dispatch_overhead_s']*1e6:.1f} us | "
           f"program cache h{program_cache.stats.hits}/"
           f"m{program_cache.stats.misses}")
-    census = ", ".join(f"{k}/{b}: {n}" for (k, b), n in sorted(routes.items()))
+    route_text = ", ".join(f"{k}/{b}: {n}" for (k, b), n in sorted(routes.items()))
     print(f"device {device} | measured floor {stream.floor_s*1e6:.1f} us/dispatch | "
-          f"routes {census} | kernel launches "
+          f"routes {route_text} | kernel launches "
           + ", ".join(f"{k}: {n}" for k, n in launches.items()))
+    print(f"weight form {args.weight_form}: packed in {pack_s:.2f} s | packed leaves "
+          + (", ".join(f"{f}: {n}" for f, n in sorted(census.items())) or "none"))
     return out
 
 

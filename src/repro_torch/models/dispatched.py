@@ -1,12 +1,17 @@
 """Dispatcher-routed layers: every weight matmul and attention cell.
 
-After `src/repro/models/dispatched.py`: the dense path of `linear` (:290,
-through `_matmul_dense` :264), `flash_route` (:328), `decode_route` (:347),
-`route_and_run` (:253) and the dispatcher scope `use_dispatcher` /
-`active_dispatcher` (:198). Each cell resolves through the active
-`KernelDispatcher`: a CUDA tensor runs the hand-written kernel, a CPU tensor
-the kernel's plain PyTorch version. The packed weight forms
-(`DispatchedWeight`) wait for the palette slice.
+After `src/repro/models/dispatched.py`: `linear` (:290, through
+`_matmul_dense` :264 and `_matmul_packed` :275), the packed weights
+(`DispatchedWeight` :53, `pack_linear_weight` :138, `packable` :181),
+`flash_route` (:328), `decode_route` (:347), `route_and_run` (:253) and the
+dispatcher scope `use_dispatcher` / `active_dispatcher` (:198). Each cell
+resolves through the active `KernelDispatcher`: a CUDA tensor runs the
+hand-written kernel, a CPU tensor the kernel's plain PyTorch version.
+
+A packed weight routes to the `palette` or `sparse` kernel, never to
+`anemm`. On CUDA its activation must be fp32 or bf16: an fp16 model with a
+packed form raises there (the reference's HAL gate would fall back to the
+plain version instead; the port has no fallback on the card).
 
 The port has no undispatched matmul path: the reference's plain
 `dot_general` fallback would be a library matmul outside any kernel, so
@@ -16,12 +21,149 @@ The port has no undispatched matmul path: the reference's plain
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.core.dispatch import KernelDispatcher
+from repro_torch.core.hal import WeightForm
+from repro_torch.kernels.palette import palette_matmul as pm
+from repro_torch.kernels.palette.ref import palette_matmul_ref
+from repro_torch.kernels.sparse import sparse_matmul as sm
+from repro_torch.kernels.sparse.ref import sparse_matmul_ref
+from repro_torch.tree import register_node
+
+# ---------------------------------------------------------------------------
+# Weight-form-tagged packed weights
+# ---------------------------------------------------------------------------
+
+Payload = dict[str, torch.Tensor]
+# Lloyd rounds of the palette codebook fit on the serving path
+PALETTE_ITERS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FormKernel:
+    """Everything the port knows of one packed weight form.
+
+    `kernel` is the registry row that streams it, `keys` its payload's
+    tensors in the kernel's argument order (the first carries the stack
+    dims), `k_multiple` what the contraction extent must divide by. `pack`
+    turns a 2-D (K, N) weight into a payload, `unpack` a 2-D payload back
+    into the dense (K, N) weight (the FOLD path), and `run` / `plain` call
+    the kernel's wrapper / its plain version as `fn(a, *payload)`."""
+
+    kernel: str
+    keys: tuple[str, ...]
+    k_multiple: int
+    pack: Callable[[torch.Tensor], Payload]
+    unpack: Callable[..., torch.Tensor]
+    run: Callable[..., torch.Tensor]
+    plain: Callable[..., torch.Tensor]
+
+    def args(self, payload: Payload) -> tuple[torch.Tensor, ...]:
+        return tuple(payload[k] for k in self.keys)
+
+
+# WeightForm -> how the port packs and streams it
+FORM_KERNELS: dict[WeightForm, FormKernel] = {
+    WeightForm.INT4_PALETTE: FormKernel(
+        "palette", ("packed", "lut"), 2,
+        lambda w: dict(zip(("packed", "lut"), pm.pack_kn(w, iters=PALETTE_ITERS))),
+        pm.unpack_dense, pm.palette_matmul, palette_matmul_ref),
+    WeightForm.SPARSE: FormKernel(
+        "sparse", ("values", "selector"), 16,
+        lambda w: dict(zip(("values", "selector"), sm.pack_pair_sparse(w))),
+        sm.unpack_dense, sm.sparse_matmul, sparse_matmul_ref),
+}
+
+
+@dataclasses.dataclass
+class DispatchedWeight:
+    """A packed weight and its static routing tag.
+
+    `payload` holds the form's tensors (`FORM_KERNELS[form].keys`), packed
+    over the 2-D matmul view (K = product of the contracted dims, N =
+    product of the output dims) with any stack dims (the layer axis)
+    leading. `contract_shape` / `out_shape` keep the logical dense layout
+    and `dtype_name` the dense dtype. The class is a node of
+    `repro_torch.tree`: a walk goes into `payload` and rebuilds the node
+    with its tag, as `jax.tree` does through the reference's pytree
+    registration, so slicing a layer out of a stack keeps the form."""
+
+    form: WeightForm
+    contract_shape: tuple[int, ...]
+    out_shape: tuple[int, ...]
+    dtype_name: str
+    payload: Payload
+
+    @property
+    def spec(self) -> FormKernel:
+        return FORM_KERNELS[self.form]
+
+    @property
+    def kernel(self) -> str:
+        return self.spec.kernel
+
+    @property
+    def n_stack(self) -> int:
+        """Leading stack dims still carried by the payload; 0 at the 2-D
+        matmul view."""
+        return self.payload[self.spec.keys[0]].ndim - 2
+
+    def index(self, i) -> "DispatchedWeight":
+        """Slice the leading stack dim."""
+        return dataclasses.replace(self, payload={k: v[i] for k, v in self.payload.items()})
+
+    def dense(self) -> torch.Tensor:
+        """Decode the 2-D payload to the logical dense weight: the FOLD path."""
+        if self.n_stack:
+            raise ValueError("dense() wants the 2-D matmul view; slice stack dims first")
+        w2 = self.spec.unpack(*self.spec.args(self.payload))
+        return w2.reshape(self.contract_shape + self.out_shape).to(
+            getattr(torch, self.dtype_name))
+
+
+register_node(
+    DispatchedWeight,
+    lambda w: ((w.form.value, w.contract_shape, w.out_shape, w.dtype_name), w.payload),
+    lambda static, payload: DispatchedWeight(WeightForm(static[0]), *static[1:], payload))
+
+
+def pack_linear_weight(w: torch.Tensor, form: WeightForm, *, n_contract: int,
+                       n_out: int) -> DispatchedWeight:
+    """Pack one logical weight (stack dims + contract dims + out dims) into
+    `form` on `w`'s device. Stack dims stay leading payload dims, with one
+    codebook per slice, in `np.ndindex` order as the reference packs them."""
+    pack = FORM_KERNELS[form].pack
+    n_stack = w.ndim - n_contract - n_out
+    if n_stack < 0:
+        raise ValueError(f"weight rank {w.ndim} < contract {n_contract} + out {n_out}")
+    contract_shape = tuple(w.shape[n_stack:n_stack + n_contract])
+    out_shape = tuple(w.shape[n_stack + n_contract:])
+    lead = tuple(w.shape[:n_stack])
+    w2 = w.reshape(lead + (math.prod(contract_shape), math.prod(out_shape)))
+    if not lead:
+        payload = pack(w2)
+    else:
+        slices = [pack(w2[idx]) for idx in np.ndindex(*lead)]
+        payload = {key: torch.stack([s[key] for s in slices]).reshape(
+            lead + tuple(slices[0][key].shape)) for key in slices[0]}
+    return DispatchedWeight(form, contract_shape, out_shape,
+                            str(w.dtype).removeprefix("torch."), payload)
+
+
+def packable(form: WeightForm, k: int) -> bool:
+    """Can a matmul view with contraction extent `k` pack into `form`?"""
+    return form in FORM_KERNELS and k % FORM_KERNELS[form].k_multiple == 0
+
+
+# ---------------------------------------------------------------------------
+# Dispatcher scope and routed execution
+# ---------------------------------------------------------------------------
 
 _SCOPE: list[KernelDispatcher] = []
 
@@ -67,15 +209,31 @@ def _matmul_dense(disp: KernelDispatcher, a2: torch.Tensor,
                          lambda: anemm_ref(a2, w2))
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, *, n_contract: int = 1,
+def _matmul_packed(disp: KernelDispatcher, a2: torch.Tensor,
+                   w: DispatchedWeight) -> torch.Tensor:
+    spec, args = w.spec, w.spec.args(w.payload)
+    return route_and_run(disp, w.kernel, a2, lambda: spec.run(a2, *args),
+                         lambda: spec.plain(a2, *args))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor | DispatchedWeight, *, n_contract: int = 1,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     """The matmul every layer calls: contract the trailing `n_contract` dims
-    of `x` with the leading dims of `w`, through the `anemm` row."""
+    of `x` with the leading dims of `w`. A dense weight runs through the
+    `anemm` row, a packed one through its form's row (`palette`/`sparse`)."""
     disp = _require_dispatcher("linear()")
     k = math.prod(x.shape[x.ndim - n_contract:])
-    out2 = _matmul_dense(disp, x.reshape(-1, k).contiguous(),
-                         w.reshape(k, -1).contiguous())
-    out = out2.reshape(x.shape[:x.ndim - n_contract] + w.shape[n_contract:])
+    a2 = x.reshape(-1, k).contiguous()
+    if isinstance(w, DispatchedWeight):
+        if w.n_stack:
+            raise ValueError(f"packed weight still carries {w.n_stack} stack dims; "
+                             "slice before linear()")
+        out2 = _matmul_packed(disp, a2, w)
+        out_shape = w.out_shape
+    else:
+        out2 = _matmul_dense(disp, a2, w.reshape(k, -1).contiguous())
+        out_shape = tuple(w.shape[n_contract:])
+    out = out2.reshape(x.shape[:x.ndim - n_contract] + out_shape)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -123,6 +123,7 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def logits(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Always fp32 out: the routed head runs the whole matmul in fp32 (an
     fp32 `anemm`), so the anchor holds although the kernel stores in its
-    input dtype. Each call widens the bf16 `unembed` to an fp32 copy."""
+    input dtype. Each call widens a dense bf16 `unembed` to an fp32 copy; a
+    packed `unembed` runs the fp32 `palette` / `sparse` kernel instead."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
     return dsp.linear(x.float(), w)

@@ -1,12 +1,16 @@
 """The port's kernels against the JAX package's Pallas kernels, on the CPU.
 
-For `anemm`, `flash` and `decode_attention`, every registry shape class in
-fp32 and bf16: the reference's own input bundle goes through the Pallas
+For `anemm`, `palette`, `sparse`, `flash` and `decode_attention`, every
+registry shape class in fp32 and bf16: the reference's own input bundle goes through the Pallas
 kernel (interpret mode on the CPU, as the reference's tests run it) and,
 bridged bit for bit into torch, through the port's kernel wrapper, which on
 a CPU tensor runs the kernel's plain PyTorch version. They must agree at the
 reference registry's tolerance. The port's registry rows must mirror the
-reference's: case names, dims, edge flags, dtypes and tolerances.
+reference's: case names, dims, edge flags, dtypes and tolerances. The packed
+rows pack with the port's own packers, which must give the reference's
+payloads: bit for bit, except that a palette codebook entry may differ by 2
+float32 ulp (a Lloyd mean is a float64 sum rounded once here, a pairwise
+float32 sum in numpy).
 
 The CUDA kernels themselves run only on a card: the `cuda`-marked tests at
 the end hold each kernel against its plain version there and skip here.
@@ -26,8 +30,12 @@ from repro_torch.kernels.anemm.anemm import anemm
 from repro_torch.kernels.anemm.ref import anemm_ref
 from repro_torch.kernels.flash.decode_attention import decode_attention
 from repro_torch.kernels.flash.flash_attention import flash_attention
+from repro_torch.kernels.palette.palette_matmul import palette_matmul
+from repro_torch.kernels.palette.ref import palette_matmul_ref
+from repro_torch.kernels.sparse.sparse_matmul import sparse_matmul
 
-KERNELS = ("anemm", "flash", "decode_attention")
+KERNELS = ("anemm", "palette", "sparse", "flash", "decode_attention")
+LUT_ULPS = 2   # a palette codebook entry against the reference's (see above)
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -41,6 +49,13 @@ def _cases():
 
 def _bridge(bundle: dict) -> dict:
     return {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in bundle.items()}
+
+
+def ulp_distance(got: np.ndarray, want: np.ndarray) -> int:
+    """Largest distance in float32 ulps (same-sign values)."""
+    g = np.asarray(got, np.float32).view(np.int32).astype(np.int64)
+    w = np.asarray(want, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(g - w).max())
 
 
 def _close(got: torch.Tensor, want: np.ndarray, tol) -> None:
@@ -83,7 +98,10 @@ def test_make_inputs_draw_the_reference_values(name):
         got = tspec.make_inputs(case, torch.float32, np.random.default_rng(3), "cpu")
         assert list(got) == list(want)
         for key in want:
-            np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+            if key == "lut":
+                assert ulp_distance(got[key].numpy(), np.asarray(want[key])) <= LUT_ULPS
+            else:
+                np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16", "float16"])
@@ -164,7 +182,7 @@ def test_dispatcher_routes_by_device():
     with pytest.raises(ValueError):
         disp.resolve("anemm", torch.ones(2, 2, device="meta"))
     with pytest.raises(KeyError):
-        disp.resolve("palette", torch.ones(2, 2))
+        disp.resolve("verify_accept", torch.ones(2, 2))
 
 
 def test_wrappers_refuse_bad_operands():
@@ -183,6 +201,103 @@ def test_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError):
         flash_attention(torch.ones(1, 2, 4, 16), torch.ones(1, 2, 4, 16),
                         torch.ones(1, 2, 4, 16), window=0)
+
+
+def _palette_operands(k=32, n=16, m=4, dtype=torch.float32):
+    return (torch.ones(m, k, dtype=dtype), torch.zeros(k // 2, n, dtype=torch.uint8),
+            torch.linspace(-1.0, 1.0, 16))
+
+
+def _sparse_operands(k=32, n=16, m=4, dtype=torch.float32):
+    return (torch.ones(m, k, dtype=dtype), torch.ones(k // 2, n, dtype=torch.float16),
+            torch.zeros(k // 16, n, dtype=torch.uint8))
+
+
+def test_packed_wrappers_accept_their_contract():
+    a, packed, lut = _palette_operands(dtype=torch.bfloat16)
+    assert palette_matmul(a, packed, lut).dtype == torch.bfloat16
+    a, values, selector = _sparse_operands()
+    assert sparse_matmul(a, values.to(torch.bfloat16), selector).shape == (4, 16)
+
+
+@pytest.mark.parametrize("case", [
+    "odd_k", "a_rank", "a_fp16", "a_fp64", "packed_dtype", "packed_rows", "lut_shape",
+    "lut_fp16", "device_mismatch", "meta_device", "non_contiguous"])
+def test_palette_wrapper_refuses_bad_operands(case):
+    a, packed, lut = _palette_operands()
+    if case == "odd_k":
+        a, packed = torch.ones(4, 33), torch.zeros(16, 16, dtype=torch.uint8)
+    elif case == "a_rank":
+        a = a[None]
+    elif case == "a_fp16":
+        a = a.half()
+    elif case == "a_fp64":
+        a = a.double()
+    elif case == "packed_dtype":
+        packed = packed.to(torch.int8)
+    elif case == "packed_rows":
+        packed = torch.zeros(15, 16, dtype=torch.uint8)
+    elif case == "lut_shape":
+        lut = torch.zeros(8)
+    elif case == "lut_fp16":
+        lut = lut.half()
+    elif case == "device_mismatch":
+        lut = lut.to("meta")
+    elif case == "meta_device":
+        a, packed, lut = (t.to("meta") for t in (a, packed, lut))
+    elif case == "non_contiguous":
+        packed = torch.zeros(16, 32, dtype=torch.uint8)[:, ::2]
+    with pytest.raises((ValueError, TypeError)):
+        palette_matmul(a, packed, lut)
+
+
+@pytest.mark.parametrize("case", [
+    "k_not_16", "selector_rows", "selector_cols", "selector_dtype", "values_fp32",
+    "values_rows", "a_fp16", "device_mismatch", "non_contiguous"])
+def test_sparse_wrapper_refuses_bad_operands(case):
+    a, values, selector = _sparse_operands()
+    if case == "k_not_16":
+        a, values, selector = _sparse_operands(k=24)
+    elif case == "selector_rows":
+        selector = torch.zeros(3, 16, dtype=torch.uint8)
+    elif case == "selector_cols":
+        selector = torch.zeros(2, 15, dtype=torch.uint8)
+    elif case == "selector_dtype":
+        selector = selector.to(torch.int32)
+    elif case == "values_fp32":
+        values = values.float()
+    elif case == "values_rows":
+        values = torch.ones(15, 16, dtype=torch.float16)
+    elif case == "a_fp16":
+        a = a.half()
+    elif case == "device_mismatch":
+        selector = selector.to("meta")
+    elif case == "non_contiguous":
+        a = torch.ones(32, 4).T
+    with pytest.raises((ValueError, TypeError)):
+        sparse_matmul(a, values, selector)
+
+
+def _ragged_palette(device="cpu"):
+    """K = 130, not a multiple of any tile depth, with a codebook whose entry
+    0 is large: the nibbles of a zero-padded weight row decode to lut[0], not
+    to 0, so a kernel that padded B and relied on it would go wrong unless it
+    also zeroed A's K tail."""
+    rng = np.random.default_rng(7)
+    lut = np.sort(rng.normal(size=16)).astype(np.float32)
+    lut[0] = 1000.0
+    packed = rng.integers(0, 256, size=(65, 72), dtype=np.uint8)
+    a = rng.normal(size=(32, 130)).astype(np.float32)
+    return a, packed, lut
+
+
+def test_palette_ragged_k_matches_pallas():
+    from repro.kernels.palette.palette_matmul import palette_matmul as jpalette
+
+    a, packed, lut = _ragged_palette()
+    want = np.asarray(jpalette(jnp.asarray(a), jnp.asarray(packed), jnp.asarray(lut)))
+    got = palette_matmul(*(torch.from_numpy(x) for x in (a, packed, lut)))
+    _close(got, want, jreg.get("palette").tol(jnp.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -229,3 +344,23 @@ def test_cuda_anemm_epilogue_matches_plain_version(cuda_device):
         fin = torch.isfinite(want)
         rtol, atol = treg.get("anemm").tol(dt)
         torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_palette_ragged_k_matches_plain_version(cuda_device):
+    a, packed, lut = (torch.from_numpy(x).to(cuda_device) for x in _ragged_palette())
+    for dt in treg.get("palette").dtypes:
+        got = palette_matmul(a.to(dt), packed, lut).float()
+        want = palette_matmul_ref(a.to(dt), packed, lut).float()
+        rtol, atol = treg.get("palette").tol(dt)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_wrappers_refuse_fp16_activations(cuda_device):
+    a, packed, lut = (t.to(cuda_device) for t in _palette_operands())
+    with pytest.raises(TypeError):
+        palette_matmul(a.half(), packed, lut)
+    a, values, selector = (t.to(cuda_device) for t in _sparse_operands())
+    with pytest.raises(TypeError):
+        sparse_matmul(a.half(), values, selector)
