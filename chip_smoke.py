@@ -21,15 +21,36 @@ printing one JSON line for each:
   4. parity  — the smoke model's prefill and decode logits on the card
                (kernels) against the same weights on the CPU (plain versions),
                dense and packed (int4_palette, sparse), fp32 and bf16;
-  5. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
+  5. rows    — full tinyllama-1.1b decode steps on 8 lanes and on the same
+               8 lanes twice over (16 rows): the first 8 rows' logits must be
+               equal bit for bit (a tree verify window runs 16 rows where
+               decode runs 8, and the spec streams must equal the continuous
+               ones);
+  6. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
                seed, bf16) served by the serve CLI's entry point through the
                continuous schedule, once per weight form: fp16 (dense, anemm),
                int4_palette (palette) and sparse (sparse), each packed on the
                card after init. Each run's launch counts are zeroed just
                before and read just after; every route must be cuda and each
                of the run's kernels must have launched its expected count;
-  6. profile — one more round of each serve under torch.profiler: device
-               time by kernel and the device's busy share.
+  7. profile — one more round of each serve under torch.profiler: device
+               time by kernel and the device's busy share;
+  8. spec    — the same model and requests (fp16 form) through the
+               speculative schedule (`--schedule spec --draft-depth 4`) three
+               ways: `--draft self`, `--draft shrink`, and `--draft shrink
+               --draft-branches 2`; then once more with two branches and an
+               early-exit drafter (the target's first L-1 layers, final norm
+               and head, built beside the CLI's entry point), which accepts
+               some proposals and not others, so that windows keep part of
+               their writes and roll back the rest, and branch 1 wins some
+               lanes. Each run's tokens must equal the fp16 continuous run's,
+               every route must be cuda, the self drafter must accept
+               everything, the shrink drafter must be rejected somewhere, the
+               early-exit drafter must accept strictly between none and all,
+               with some partial windows and some branch-1 wins; every window
+               must make one verify and (if it drafted) one draft dispatch,
+               and every kernel must have launched exactly as often as the
+               run's forwards and windows say.
 
 Then a `kernels` line with every kernel's numbers, the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
@@ -45,6 +66,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -58,7 +80,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port itself: alone in a directory, the script stops here
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import hal  # noqa: E402
-from repro_torch.core.dispatch import dtype_name  # noqa: E402
+from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
+                                       ProgramCache, dtype_name)
 from repro_torch.kernels import native, registry  # noqa: E402
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
@@ -67,7 +90,8 @@ from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.scheduler import merge_prefill_caches  # noqa: E402
+from repro_torch.launch.scheduler import Request, merge_prefill_caches  # noqa: E402
+from repro_torch.launch.speculative import Drafter, SpeculativeSchedule  # noqa: E402
 from repro_torch.models import dispatched as dsp  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim.compression import compress_model_params  # noqa: E402
@@ -83,6 +107,9 @@ FORM_KERNEL = {"fp16": "anemm", **{f.value: k.kernel for f, k in dsp.FORM_KERNEL
 # packed kernel -> its form's pack / unpack / wrapper (models.dispatched)
 PACKED = {k.kernel: k for k in dsp.FORM_KERNELS.values()}
 NAMED_RECORDS = ("admit_slot", "reset_slot", "merge_prefill")   # lane writes
+SPEC_DEPTH = 4
+# the spec phase's runs: drafter and branches
+SPEC_RUNS = (("self", 1), ("shrink", 1), ("shrink", 2), ("early_exit", 2))
 
 TIMING_REPS = 20
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
@@ -209,6 +236,13 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
                    "v_cache": normal((B, S, kv, dh), bf16),
                    "positions": torch.where(pos < lens[:, None], pos, -1).contiguous(),
                    "current": (lens - 1).contiguous()}))
+    # a verify window of the spec phase: 8 lanes, K+1 = 5 positions, the
+    # vocab; the tree's 2 branches
+    T = SPEC_DEPTH + 1
+    for name, dims in (("specdec", (B, T, cfg.vocab)), ("specdec_tree", (B, 2, T, cfg.vocab))):
+        inputs = registry.get(name).make_inputs(registry.ShapeCase("main", dims),
+                                                torch.float32, rng, dev)
+        cases.append((name, "x".join(map(str, dims)) + " fp32", inputs))
     return cases
 
 
@@ -225,6 +259,8 @@ def library_call(name: str, i: dict):
     if name == "flash":
         return lambda: F.scaled_dot_product_attention(
             i["q"], i["k"], i["v"], is_causal=True, enable_gqa=True)
+    if name in ("specdec", "specdec_tree"):       # the picks alone
+        return lambda: torch.argmax(i["scores"], dim=-1)
     q = i["q"][:, :, None]
     k = i["k_cache"].transpose(1, 2)
     v = i["v_cache"].transpose(1, 2)
@@ -299,6 +335,23 @@ def check_kernels(cfg, timer) -> dict:
             run_oracle=lambda i: decode_attention_ref(*(i[k] for k in names), window=24))
         check(win, f"window=24 {dtype_name(dtype)}", i, False)
 
+    # verify/accept on rows with planted equal maxima and rows of all -inf,
+    # at the spec phase's shapes
+    for name in ("specdec", "specdec_tree"):
+        spec = registry.get(name)
+        dims = (8, SPEC_DEPTH + 1, cfg.vocab) if name == "specdec" else \
+            (8, 2, SPEC_DEPTH + 1, cfg.vocab)
+        for kind in ("ties", "-inf"):
+            i = spec.make_inputs(registry.ShapeCase("stress", dims), torch.float32, rng, "cuda")
+            s = i["scores"]
+            if kind == "ties":
+                top = s.amax(-1, keepdim=True) + 1.0
+                cols = torch.randint(0, cfg.vocab, s.shape[:-1] + (3,), device="cuda")
+                s.scatter_(-1, cols, top.expand(*s.shape[:-1], 3).contiguous())
+            else:
+                s[1::2] = float("-inf")           # every other lane
+            check(spec, f"{kind} rows " + "x".join(map(str, dims)), i, False)
+
     headline = {}
     for name, label, inputs in main_path_inputs(cfg, rng):
         rec = check(registry.get(name), "main " + label, inputs, True)
@@ -346,14 +399,21 @@ def main() -> int:
     cfg = configs.get_config("tinyllama-1.1b")
     headline = check_kernels(cfg, Timer())
     check_parity()
+    check_rows(cfg)
     # each kernel's launches come from the serve run whose path uses it
-    launches = {}
+    launches, tokens = {}, {}
     for form in FORM_KERNEL:
-        run = serve_main_path(form)
+        run, tokens[form] = serve_main_path(form)
         kernels_of_run = ("anemm", "flash", "decode_attention") if form == "fp16" \
             else (FORM_KERNEL[form],)
         launches.update({k: run[k] for k in kernels_of_run})
         profile_serve(form)
+    for draft, branches in SPEC_RUNS:
+        run = serve_spec(cfg, draft, branches, tokens["fp16"])
+        if (draft, branches) == ("self", 1):
+            launches["specdec"] = run["specdec"]
+        if branches > 1:
+            launches["specdec_tree"] = run["specdec_tree"]
 
     kernels = []
     for spec in registry.all_specs():
@@ -414,10 +474,10 @@ def check_parity() -> None:
                  max_abs_err=max(errs), tol=[rtol, atol], ok=True)
 
 
-def serve_main_path(form: str) -> dict:
+def serve_main_path(form: str) -> tuple[dict, np.ndarray]:
     """Full tinyllama-1.1b in weight form `form` through the serve CLI's
-    entry point; returns the kernels' launch counts from this run alone,
-    after checking them: every route is cuda, the form's matmul kernel ran
+    entry point; returns the kernels' launch counts from this run alone and
+    the tokens, after checking them: every route is cuda, the form's matmul kernel ran
     once per matmul of every forward (7 per layer plus the head) and no
     other matmul kernel ran, flash once per layer of every prefill and
     decode_attention once per layer of every decode step."""
@@ -468,14 +528,158 @@ def serve_main_path(form: str) -> dict:
          routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
          launches=launches,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, tokens
 
 
-def serve_argv(cfg, rounds: int, form: str) -> list[str]:
-    return ["--arch", cfg.name, "--schedule", "continuous", "--batch", "8",
+def serve_argv(cfg, rounds: int, form: str, schedule: str = "continuous") -> list[str]:
+    return ["--arch", cfg.name, "--schedule", schedule, "--batch", "8",
             "--prompt-lens", SERVE_LENS, "--gen", str(SERVE_GEN),
             "--requests", str(rounds), "--seed", "0", "--device", "cuda",
             "--weight-form", form]
+
+
+def check_rows(cfg) -> None:
+    """Decode steps of full tinyllama-1.1b on 8 lanes, and on the same 8
+    lanes twice over: the first 8 rows' logits must agree bit for bit, or a
+    16-row tree verify window could pick other tokens than 8-row decode."""
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (8, 4), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2))
+
+    def run(repeat: int) -> torch.Tensor:
+        caches, rows = model.init_cache(8 * repeat, 64), []
+        for step in range(tokens.shape[1]):
+            tok = tokens[:, step:step + 1].repeat(repeat, 1).cuda()
+            pos = torch.full((8 * repeat,), step, dtype=torch.int32, device="cuda")
+            caches, lg = model.decode_step(params, caches, tok, pos)
+            rows.append(lg[:8])
+        return torch.stack(rows)
+
+    a, b = run(1), run(2)
+    err = float((a - b).abs().max())
+    emit("rows", config=cfg.name, steps=tokens.shape[1], rows=[8, 16], max_abs_err=err,
+         ok=err == 0.0)
+    if err != 0.0:
+        raise AssertionError(f"decode logits at 16 rows differ from 8 rows by {err}")
+    del model, params
+
+
+def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
+    """Full tinyllama-1.1b (fp16 form) through the speculative schedule with
+    `draft` and `branches`; returns the launch counts of this run alone,
+    after checking the tokens against the continuous run's, the routes, the
+    acceptance, the dispatches per window and every kernel's launches:
+    anemm once per matmul of every forward of either model (7 per layer plus
+    the head), flash once per layer of either model per admission prefill,
+    decode_attention once per layer of every decode forward of either model,
+    specdec once per chain window and specdec_tree once per tree window."""
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    if draft == "early_exit":
+        out = serve_early_exit(cfg, branches)
+    else:
+        out = serve.run(serve_argv(cfg, SERVE_ROUNDS, "fp16", "spec") + [
+            "--draft", draft, "--draft-branches", str(branches),
+            "--draft-depth", str(SPEC_DEPTH)])
+    launches = native.launch_counts()
+    engine = out["engine"]
+    tag = f"spec {draft} x{branches}"
+    if not np.array_equal(out["tokens"], want_tokens):
+        bad = int((out["tokens"] != want_tokens).any(axis=1).sum())
+        raise AssertionError(f"{tag}: {bad} of {len(want_tokens)} streams differ from the "
+                             "continuous run's")
+    backends = {b for _, b in out["routes"]}
+    if backends != {"cuda"}:
+        raise AssertionError(f"{tag} routes {out['routes']}: every route must be cuda")
+    if draft == "self" and out["acceptance_rate"] != 1.0:
+        raise AssertionError(f"{tag}: acceptance {out['acceptance_rate']}, want 1.0")
+    if draft == "shrink" and not out["accepted"] < out["proposed"]:
+        raise AssertionError(f"{tag}: accepted {out['accepted']} of {out['proposed']}")
+    if draft == "early_exit" and not (0 < out["accepted"] < out["proposed"]
+                                      and out["partial_accepts"] > 0
+                                      and any(b > 0 for b in out["branch_wins"])):
+        raise AssertionError(f"{tag}: accepted {out['accepted']} of {out['proposed']}, "
+                             f"{out['partial_accepts']} partial lane-windows, branch wins "
+                             f"{out['branch_wins']}: the mixed rollback or a branch > 0 "
+                             "did not run")
+    n_windows, kinds = out["n_windows"], out["windows_by_kind"]
+    if out["verify_dispatches"] != n_windows or \
+            out["draft_dispatches"] != n_windows - out["bonus_windows"]:
+        raise AssertionError(f"{tag}: {n_windows} windows ({out['bonus_windows']} with K=0), "
+                             f"{out['draft_dispatches']} draft and "
+                             f"{out['verify_dispatches']} verify dispatches")
+    recs = out["records"]
+    n_prefill = sum(r.key == "spec_admit_slot" for r in recs)
+    l_t, l_d = cfg.n_layers, engine.drafter.cfg.n_layers
+    t_fwd = n_prefill + out["catchup_steps"] + out["verify_steps"]
+    d_fwd = n_prefill + out["catchup_steps"] + out["draft_steps"]
+    want = {k: 0 for k in launches}
+    want.update({"anemm": (7 * l_t + 1) * t_fwd + (7 * l_d + 1) * d_fwd,
+                 "flash": (l_t + l_d) * n_prefill,
+                 "decode_attention": l_t * (t_fwd - n_prefill) + l_d * (d_fwd - n_prefill),
+                 "specdec": kinds.get("chain", 0), "specdec_tree": kinds.get("tree", 0)})
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    walls = {"draft": [r.wall_s for r in recs if r.key in engine._draft_keys],
+             "verify": [r.wall_s for r in recs if r.key in engine._verify_keys]}
+    emit("spec", config=cfg.name, dtype=cfg.dtype, weight_form="fp16", drafter=draft,
+         drafter_layers=l_d, draft_branches=branches, draft_depth=SPEC_DEPTH,
+         lanes=len(want_tokens), prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=SERVE_ROUNDS,
+         tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], tokens_match_continuous=True,
+         acceptance_rate=out["acceptance_rate"], proposed=out["proposed"],
+         accepted=out["accepted"], partial_accepts=out["partial_accepts"],
+         branch_wins=out["branch_wins"], n_windows=n_windows, windows_by_kind=kinds,
+         bonus_windows=out["bonus_windows"], draft_dispatches=out["draft_dispatches"],
+         verify_dispatches=out["verify_dispatches"], emitted_tokens=out["emitted_tokens"],
+         draft_steps=out["draft_steps"], verify_steps=out["verify_steps"],
+         catchup_steps=out["catchup_steps"], prefills=n_prefill,
+         target_forwards=t_fwd, drafter_forwards=d_fwd, n_dispatches=out["n_dispatches"],
+         median_dispatch_ms={k: statistics.median(w) * 1e3 if w else None
+                             for k, w in walls.items()},
+         cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
+         routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+         launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def early_exit_drafter(model, params, cfg, n_layers: int) -> Drafter:
+    """The target's own first `n_layers` layers, final norm and head: a
+    drafter that agrees with the target often, and not always."""
+    dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-exit{n_layers}", n_layers=n_layers)
+    dparams = {**params, "layers": tree_map(lambda t: t[:n_layers], params["layers"])}
+    return Drafter(build_model(dcfg, model.dispatcher, device=model.device), dparams, dcfg,
+                   kind="early_exit", trained=True)
+
+
+def serve_early_exit(cfg, branches: int) -> dict:
+    """What `serve.run` does for the spec phase's argv (the same weights,
+    prompts, lanes and rounds), with an early-exit drafter of L-1 layers in
+    place of the CLI's drafters; returns the same keys the checks read."""
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    lens = [int(x) for x in SERVE_LENS.split(",")]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32) for L in lens]
+    cache = ProgramCache()
+    stream = AsyncExecutionStream(cache, device="cuda")
+    engine = SpeculativeSchedule(
+        model, params, cfg, n_slots=len(lens), max_len=SERVE_MAX_LEN, stream=stream,
+        drafter=early_exit_drafter(model, params, cfg, cfg.n_layers - 1),
+        draft_depth=SPEC_DEPTH, draft_branches=branches)
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(SERVE_ROUNDS):
+        results = engine.run([Request(rid=r * len(lens) + i, prompt=p, max_new_tokens=SERVE_GEN)
+                              for i, p in enumerate(prompts)])
+    wall = time.perf_counter() - t0
+    stream.close()
+    n_requests = len(lens) * SERVE_ROUNDS
+    return {"tokens": np.stack([r.tokens for r in results]), "engine": engine,
+            "routes": model.dispatcher.census(), "records": list(stream.records),
+            "wall_s": wall, "tok_per_s": SERVE_GEN * n_requests / wall,
+            "cache_hits": cache.stats.hits, "cache_misses": cache.stats.misses,
+            **engine.stats(n_requests)}
 
 
 def profile_serve(form: str) -> None:

@@ -10,7 +10,10 @@ reference's tree layout, e.g. for tinyllama
                           "mlp": {"wg", "wu", "wd"}}}]}
 
 bfloat16 leaves arrive with numpy's extension dtype named "bfloat16"; they
-are reinterpreted bit for bit, so no value changes on the way in.
+are reinterpreted bit for bit, so no value changes on the way in. A shrink
+drafter's params (the reference `Drafter.params`, a one-layer tree of the
+same layout) cross the same way, with `draft_of(cfg)` as the config, and
+serve through `launch.speculative.Drafter.shrink(..., params=...)`.
 
 A packed weight arrives as any object with `form` (an enum with `.value`,
 or its string), `contract_shape`, `out_shape`, `dtype_name` and a `payload`

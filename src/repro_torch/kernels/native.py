@@ -61,6 +61,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
                 [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sparse": ("sparse_matmul.cu", "sparse_matmul_launch",
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # one source, two entry points: the chain and the tree verify/accept
+    "specdec": ("specdec.cu", "specdec_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "specdec_tree": ("specdec.cu", "specdec_tree_launch",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -103,23 +107,27 @@ def library_path(name: str) -> Path:
 
 def build(names=None) -> dict:
     """Compile every missing library of `names` (default: all kernels), one
-    nvcc process per source, all started together. Returns
-    {"seconds": wall, "built": [...], "log": {name: compiler stderr}}; raises
-    with the compiler's output if any build fails."""
+    nvcc process per source (kernels that share a source share its library),
+    all started together. Returns {"seconds": wall, "built": [...], "log":
+    {source stem: compiler stderr}}; raises with the compiler's output if any
+    build fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in todo.items() if not p.exists()}
+    todo = {}
+    for n in names:
+        path = library_path(n)
+        if not path.exists():
+            todo.setdefault(Path(KERNELS[n][0]).stem, (n, path))
     t0 = time.perf_counter()
     log: dict[str, str] = {}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs = {}
-        for name, out in todo.items():
+        for stem, (name, out) in todo.items():
             tmp = out.parent / f".{out.stem}.{os.getpid()}.so"
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / KERNELS[name][0])]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+            procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp, out)
         failed = []

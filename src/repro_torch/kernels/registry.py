@@ -8,8 +8,8 @@ Pallas kernel it replaces, and counts the work its inputs need (operations
 and bytes), from which `chip_smoke.py` computes each kernel's bound.
 
 Rows: `anemm` (reference :149), `palette` (:183), `sparse` (:221), `flash`
-(:287), `decode_attention` (:332). The other reference rows are still to be
-ported (ROADMAP queue B).
+(:287), `decode_attention` (:332), `specdec` (:500) and `specdec_tree` (:561).
+The other reference rows are still to be ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -318,8 +318,112 @@ def _register_decode() -> None:
     ))
 
 
+# ---------------------------------------------------------------------------
+# specdec / specdec_tree — fused speculative-decoding verify/accept
+# ---------------------------------------------------------------------------
+
+
+def _force_prefix(draft: np.ndarray, picks: np.ndarray, rng, t: int, v: int) -> None:
+    """One chain's draft: copy the target's picks for a random-length prefix,
+    then force the first mismatch (reference :486-491), in place."""
+    keep = int(rng.integers(0, t))                 # 0..t-1 matching tokens
+    draft[:keep] = picks[:keep]
+    if keep < t - 1:
+        draft[keep] = (picks[keep] + 1) % v
+
+
+def _specdec_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    b, t, v = case.dims
+    scores = rng.normal(size=(b, t, v)).astype(np.float32)
+    picks = np.argmax(scores, axis=-1)
+    draft = rng.integers(0, v, size=(b, max(t - 1, 0))).astype(np.int32)
+    for i in range(b):
+        _force_prefix(draft[i], picks[i], rng, t, v)
+    return {"scores": torch.from_numpy(scores).to(device),
+            "draft": torch.from_numpy(draft).to(device)}
+
+
+def _specdec_tree_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    b, nbr, t, v = case.dims
+    scores = rng.normal(size=(b, nbr, t, v)).astype(np.float32)
+    picks = np.argmax(scores, axis=-1)
+    draft = rng.integers(0, v, size=(b, nbr, max(t - 1, 0))).astype(np.int32)
+    for i in range(b):
+        for j in range(nbr):
+            _force_prefix(draft[i, j], picks[i, j], rng, t, v)
+        if case.name == "tie_branches" and nbr > 1 and t > 1:
+            # two siblings with equal accept lengths: the first must win
+            draft[i, 1] = draft[i, 0]
+            scores[i, 1] = scores[i, 0]
+    return {"scores": torch.from_numpy(scores).to(device),
+            "draft": torch.from_numpy(draft).to(device)}
+
+
+def _specdec_work(i: dict) -> tuple[float, float]:
+    """A max and a first-index compare per score (2 operations); the scores
+    and draft read once, the int32 samples, accept (and branch) written once."""
+    scores, draft = i["scores"], i["draft"]
+    b, t = scores.shape[0], scores.shape[-2]
+    n_out = b * t + b * (2 if scores.ndim == 4 else 1)
+    return 2.0 * scores.numel(), _nbytes(scores, draft) + 4.0 * n_out
+
+
+def _packed_ints(*outs: torch.Tensor) -> torch.Tensor:
+    """(samples (B, T), accept (B,) [, branch (B,)]) as one (B, T+1[+1])
+    int32 array, as the reference's `_specdec_packed` concatenates them."""
+    return torch.cat([outs[0]] + [o[:, None] for o in outs[1:]], dim=1)
+
+
+def _register_specdec() -> None:
+    from repro_torch.kernels.specdec.ref import verify_accept_ref, verify_accept_tree_ref
+    from repro_torch.kernels.specdec.specdec import (verify_accept_kernel,
+                                                     verify_accept_tree_kernel)
+
+    register(KernelSpec(
+        name="specdec",
+        dtypes=(torch.float32,),          # sampler math is fp32 by contract
+        cases=(
+            # dims = (B, K+1 window positions, vocab)
+            ShapeCase("window", (4, 5, 512)),
+            ShapeCase("deep", (2, 9, 384)),
+            ShapeCase("ragged_vocab", (3, 4, 301), edge=True),
+            ShapeCase("bonus_only", (2, 1, 128), edge=True),   # K = 0
+            ShapeCase("tiny", (1, 2, 8), edge=True),
+        ),
+        make_inputs=_specdec_inputs,
+        run_kernel=lambda i: _packed_ints(*verify_accept_kernel(i["scores"], i["draft"])),
+        run_oracle=lambda i: _packed_ints(*verify_accept_ref(i["scores"], i["draft"])),
+        tol=lambda dt: (0.0, 0.0),        # integer outputs: exact or wrong
+        work=_specdec_work,
+        source="src/repro_torch/csrc/specdec.cu",
+        replaces="src/repro/kernels/specdec/specdec.py:147",
+    ))
+    register(KernelSpec(
+        name="specdec_tree",
+        dtypes=(torch.float32,),
+        cases=(
+            # dims = (B, branches, K+1 window positions, vocab)
+            ShapeCase("fanout2", (4, 2, 5, 512)),
+            ShapeCase("fanout3", (2, 3, 4, 384)),
+            ShapeCase("single_branch", (3, 1, 4, 256), edge=True),  # == chain
+            ShapeCase("tie_branches", (3, 2, 5, 256), edge=True),
+            ShapeCase("ragged_vocab", (2, 2, 4, 301), edge=True),
+            ShapeCase("bonus_only", (2, 2, 1, 128), edge=True),     # K = 0
+        ),
+        make_inputs=_specdec_tree_inputs,
+        run_kernel=lambda i: _packed_ints(*verify_accept_tree_kernel(i["scores"],
+                                                                     i["draft"])),
+        run_oracle=lambda i: _packed_ints(*verify_accept_tree_ref(i["scores"], i["draft"])),
+        tol=lambda dt: (0.0, 0.0),
+        work=_specdec_work,
+        source="src/repro_torch/csrc/specdec.cu",
+        replaces="src/repro/kernels/specdec/specdec.py:98",
+    ))
+
+
 _register_anemm()
 _register_palette()
 _register_sparse()
 _register_flash()
 _register_decode()
+_register_specdec()

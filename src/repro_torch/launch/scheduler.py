@@ -4,9 +4,10 @@ After `src/repro/launch/scheduler.py`: `Request` / `RequestResult` (:82,
 :100), prompt-length buckets (:109, :120), `merge_prefill_caches` (:136),
 lane admission and reset (:167-239), greedy `TokenSampler` (:249),
 `_SchedulerBase` (:315), `SequentialSchedule` (:454) and `ContinuousSchedule`
-(:497). Not ported yet: mesh placement, the prefix pool, chunked prefill,
-categorical sampling (it needs `jax.random`'s threefry in torch) and the
-SLO / speculative schedules.
+(:497). The speculative schedule (`launch/speculative.py`) builds on
+`ContinuousSchedule` and registers itself in `SCHEDULES` as "spec". Not
+ported yet: mesh placement, the prefix pool, chunked prefill, categorical
+sampling (it needs `jax.random`'s threefry in torch) and the SLO schedule.
 
 Every model dispatch and every lane write goes through `self.stream` under
 the reference's keys — program keys from the `ProgramCache`, and

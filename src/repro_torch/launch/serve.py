@@ -1,7 +1,9 @@
-"""The port's serve CLI: a thin front end over the continuous-batching scheduler.
+"""The port's serve CLI: a thin front end over the serving schedules.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --batch 8 --prompt-lens 37,64,100,128,200,256,300,512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --schedule spec --draft self --draft-depth 4 --batch 2 --gen 6
 
 After `src/repro/launch/serve.py:119-419`. The model is built on the chosen
 device with a `KernelDispatcher`: on `--device cuda` (the default) every
@@ -17,7 +19,9 @@ after init, on the model's device (`optim.compression.compress_model_params`),
 and those matmuls then run the `palette` / `sparse` kernels. The report line
 is the reference's, followed by the measured dispatch floor, the route
 census, each kernel's launch count, the packing time and the weight-form
-census.
+census. `--schedule spec` serves speculative draft -> verify windows
+(`launch.speculative`) on an `AsyncExecutionStream`, and its report adds the
+windows, proposals, acceptance and step counts.
 """
 
 from __future__ import annotations
@@ -30,9 +34,11 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
+from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream,
+                                       KernelDispatcher, ProgramCache)
 from repro_torch.kernels import native
 from repro_torch.launch.scheduler import SAMPLING_MODES, SCHEDULES, Request
+from repro_torch.launch.speculative import DRAFT_KINDS
 from repro_torch.models.model import build_model
 from repro_torch.optim.compression import compress_model_params, weight_form_census
 
@@ -54,8 +60,22 @@ def run(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--schedule", default="continuous", choices=sorted(SCHEDULES),
                     help="continuous = slot-masked batched decode with mid-flight "
-                         "admission; sequential = one request at a time (parity "
-                         "reference)")
+                         "admission; spec = speculative draft->verify windows on the "
+                         "async stream (--draft-depth proposals per window, "
+                         "verify/accept on the card); sequential = one request at a "
+                         "time (parity reference)")
+    ap.add_argument("--draft-depth", type=int, default=4,
+                    help="spec only: drafter proposals per window (each window pays "
+                         "two dispatch floors for up to draft-depth + 1 tokens)")
+    ap.add_argument("--draft", default="shrink", choices=DRAFT_KINDS,
+                    help="spec only: shrink = a one-layer draft model of the "
+                         "target's widths (random weights); self = the target "
+                         "itself (every proposal accepted)")
+    ap.add_argument("--draft-branches", type=int, default=1,
+                    help="spec only: sibling draft chains per lane (tree "
+                         "verification, branching on the drafter's top-N)")
+    ap.add_argument("--max-in-flight", type=int, default=8,
+                    help="spec only: bounded in-flight window of the async stream")
     ap.add_argument("--sampling", default="greedy", choices=SAMPLING_MODES)
     ap.add_argument("--weight-form", default="fp16", choices=WEIGHT_FORMS,
                     help="stored weight form: fp16 = dense (anemm); int4_palette / "
@@ -95,8 +115,14 @@ def run(argv=None) -> dict:
     max_len = max(lens) + args.gen
 
     program_cache = ProgramCache()
-    stream = ExecutionStream(program_cache, device=device)
-    kw = {"n_slots": args.batch} if args.schedule == "continuous" else {}
+    kw = {"n_slots": args.batch} if args.schedule in ("continuous", "spec") else {}
+    if args.schedule == "spec":
+        stream = AsyncExecutionStream(program_cache, device=device,
+                                      max_in_flight=args.max_in_flight)
+        kw.update(draft_depth=args.draft_depth, draft=args.draft,
+                  draft_branches=args.draft_branches)
+    else:
+        stream = ExecutionStream(program_cache, device=device)
     engine = SCHEDULES[args.schedule](model, params, cfg, max_len=max_len,
                                       sampling=args.sampling, stream=stream, **kw)
 
@@ -109,6 +135,8 @@ def run(argv=None) -> dict:
         results = engine.run(reqs)
     wall = time.perf_counter() - t0
     launches = native.launch_counts()
+    if isinstance(stream, AsyncExecutionStream):
+        stream.close()
 
     n_requests = len(lens) * max(args.requests, 1)
     stats = engine.stats(n_requests)
@@ -133,8 +161,16 @@ def run(argv=None) -> dict:
         "routes": routes,
         "launches": launches,
         "records": list(stream.records),
+        "engine": engine,
         **stats,
     }
+    spec_note = ""
+    if args.schedule == "spec":
+        spec_note = (f" | {args.draft} drafter depth {args.draft_depth} "
+                     f"x{stats['draft_branches']} branches: {stats['n_windows']} windows "
+                     f"{stats['windows_by_kind']}, acceptance "
+                     f"{stats['acceptance_rate']:.2f}, "
+                     f"{stats['tokens_per_window_dispatch']:.2f} tok/window-dispatch")
     print(f"{args.schedule} x {args.sampling}: {n_requests} requests "
           f"(lens {lens}) gen {args.gen}: {wall*1e3:.1f} ms "
           f"({serve_wall*1e3:.1f} ms ex-compile, {out['tok_per_s']:.1f} "
@@ -142,7 +178,7 @@ def run(argv=None) -> dict:
           f"dispatches, floor/request "
           f"{stats['per_request_dispatch_overhead_s']*1e6:.1f} us | "
           f"program cache h{program_cache.stats.hits}/"
-          f"m{program_cache.stats.misses}")
+          f"m{program_cache.stats.misses}{spec_note}")
     route_text = ", ".join(f"{k}/{b}: {n}" for (k, b), n in sorted(routes.items()))
     print(f"device {device} | measured floor {stream.floor_s*1e6:.1f} us/dispatch | "
           f"routes {route_text} | kernel launches "
