@@ -12,7 +12,12 @@ printing one JSON line for each:
                sm_90a (one nvcc per source, all started together);
   3. kernels — each kernel held against its plain PyTorch version on the
                card, on every registry case and at the main-path shapes of
-               full tinyllama-1.1b, at the registry tolerance; the median
+               full tinyllama-1.1b and whisper-small (the stem's two convs
+               with their fused GELU, the GELU table over a stem output, the
+               encoder's non-causal attention) and of a pooling pyramid, at
+               the registry tolerance; `anemm`'s fused `epilogue=` against
+               its plain version and bit for bit against anemm-then-act_lut;
+               the median
                device time (CUDA-graph replay between CUDA events, L2
                flushed) of the kernel, its plain version and one PyTorch
                library call computing the same function, beside the bound
@@ -20,7 +25,8 @@ printing one JSON line for each:
                whichever is larger), and the kernel's eager per-call time;
   4. parity  — the smoke model's prefill and decode logits on the card
                (kernels) against the same weights on the CPU (plain versions),
-               dense and packed (int4_palette, sparse), fp32 and bf16;
+               dense and packed (int4_palette, sparse), fp32 and bf16; the
+               same for whisper-small smoke (frames through the conv stem);
   5. rows    — full tinyllama-1.1b decode steps on 8 lanes and on the same
                8 lanes twice over (16 rows): the first 8 rows' logits must be
                equal bit for bit (a tree verify window runs 16 rows where
@@ -50,7 +56,19 @@ printing one JSON line for each:
                with some partial windows and some branch-1 wins; every window
                must make one verify and (if it drafted) one draft dispatch,
                and every kernel must have launched exactly as often as the
-               run's forwards and windows say.
+               run's forwards and windows say;
+  9. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
+               weights from a seed) served by the serve CLI's entry point
+               through the continuous schedule: per-request log-mel frames
+               (3000, 80) through the two-conv stem (conv2d with the GELU
+               fused), the encoder, the cross K/V built at prefill and
+               resident in decode. Every route must be cuda and each
+               kernel's launches must equal what the run's admissions and
+               decode steps imply; then each request's frames encoded with
+               the stem fused and unfused (conv2d, then act_lut), which must
+               give the same bits with exactly 2 more act_lut launches per
+               request; the pools routed once at the pyramid shapes; and one
+               more round under the profiler for the device's busy share.
 
 Then a `kernels` line with every kernel's numbers, the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
@@ -83,6 +101,7 @@ from repro_torch.core import hal  # noqa: E402
 from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
                                        ProgramCache, dtype_name)
 from repro_torch.kernels import native, registry  # noqa: E402
+from repro_torch.kernels.act_lut.ops import lut_activation, table_operands  # noqa: E402
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
 from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
@@ -93,6 +112,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.scheduler import Request, merge_prefill_caches  # noqa: E402
 from repro_torch.launch.speculative import Drafter, SpeculativeSchedule  # noqa: E402
 from repro_torch.models import dispatched as dsp  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim.compression import compress_model_params  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
@@ -110,6 +130,15 @@ NAMED_RECORDS = ("admit_slot", "reset_slot", "merge_prefill")   # lane writes
 SPEC_DEPTH = 4
 # the spec phase's runs: drafter and branches
 SPEC_RUNS = (("self", 1), ("shrink", 1), ("shrink", 2), ("early_exit", 2))
+
+# the encoder phase: whisper-small, 8 lanes, prompts that each reach a
+# prefill bucket (the cross K/V is built at prefill), 32 tokens each
+ENCODER_ARCH = "whisper-small"
+ENCODER_LENS = "8,16,24,32,48,64,100,128"
+# the pooling pyramid of the kernels phase: a 3x3 stride-2 SAME max pool
+# (a ResNet stem's) and a 7x7 global average pool (its head's), bf16
+POOL_SHAPES = {"max_pool": ((8, 112, 112, 64), (3, 3), (2, 2), "SAME"),
+               "avg_pool": ((8, 7, 7, 2048), (7, 7), (7, 7), "VALID")}
 
 TIMING_REPS = 20
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
@@ -236,6 +265,24 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
                    "v_cache": normal((B, S, kv, dh), bf16),
                    "positions": torch.where(pos < lens[:, None], pos, -1).contiguous(),
                    "current": (lens - 1).contiguous()}))
+    # whisper-small: the stem's two convs with the GELU fused at the output
+    # port (conv2 first: the headline), the GELU table over the stem's
+    # output, the pools of the pyramid
+    w = configs.get_config(ENCODER_ARCH)
+    t, d_w, kw = w.frame_shape[0], w.d_model, w.stem_width
+    for label, cin, stride in (("conv2", d_w, w.stem_stride), ("conv1", w.n_mels, 1)):
+        cases.append(("conv2d", f"stem {label} (1,1,{t},{cin})->{d_w} s{stride} gelu bf16",
+                      {"x": normal((1, 1, t, cin), bf16),
+                       "w": normal((1, kw, cin, d_w), bf16, (kw * cin) ** -0.5),
+                       "bias": normal((d_w,), bf16, 0.1), "stride": (1, stride),
+                       "padding": "SAME", "epilogue": "gelu"}))
+    cases.append(("act_lut", f"gelu ({t},{d_w}) bf16",
+                  {"x": normal((t, d_w), bf16, 2.0), "table": table_operands("gelu", dev),
+                   "name": "gelu"}))
+    for name, (shape, window, stride, pad) in POOL_SHAPES.items():
+        cases.append((name, f"{shape} {window[0]}x{window[1]} s{stride[0]} {pad} bf16",
+                      {"x": normal(shape, bf16), "window": window, "stride": stride,
+                       "padding": pad}))
     # a verify window of the spec phase: 8 lanes, K+1 = 5 positions, the
     # vocab; the tree's 2 branches
     T = SPEC_DEPTH + 1
@@ -258,9 +305,25 @@ def library_call(name: str, i: dict):
         return lambda: torch.matmul(i["a"], w)
     if name == "flash":
         return lambda: F.scaled_dot_product_attention(
-            i["q"], i["k"], i["v"], is_causal=True, enable_gqa=True)
+            i["q"], i["k"], i["v"], is_causal=i.get("causal", True), enable_gqa=True)
     if name in ("specdec", "specdec_tree"):       # the picks alone
         return lambda: torch.argmax(i["scores"], dim=-1)
+    if name == "act_lut":                          # no PyTorch call evaluates a table
+        return None
+    if name in ("conv2d", "avg_pool", "max_pool"):
+        # channels-last views of the NHWC tensors; torch pads symmetrically,
+        # so a SAME window shifts by one cell where the pads are (0, 1): the
+        # same work, not the same cells. conv2d: the conv alone (no GELU).
+        x = i["x"].permute(0, 3, 1, 2)
+        kh, kw = i["w"].shape[:2] if name == "conv2d" else i["window"]
+        pad = (kh // 2, kw // 2) if i["padding"] == "SAME" else (0, 0)
+        if name == "conv2d":
+            w = i["w"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            return lambda: F.conv2d(x, w, i["bias"], stride=i["stride"], padding=pad)
+        if name == "avg_pool":
+            return lambda: F.avg_pool2d(x, i["window"], i["stride"], padding=pad,
+                                        count_include_pad=True)
+        return lambda: F.max_pool2d(x, i["window"], i["stride"], padding=pad)
     q = i["q"][:, :, None]
     k = i["k_cache"].transpose(1, 2)
     v = i["v_cache"].transpose(1, 2)
@@ -268,6 +331,21 @@ def library_call(name: str, i: dict):
     mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
+
+
+def noncausal_flash(spec):
+    """The flash row without the causal mask (the encoder's and the
+    cross-attention's): every (query, key) pair is work."""
+    def work(i):
+        b, h, sq, d = i["q"].shape
+        n_bytes = 2 * i["q"].numel() * i["q"].element_size() + sum(
+            i[k].numel() * i[k].element_size() for k in ("k", "v"))
+        return 4.0 * b * h * d * sq * i["k"].shape[2], float(n_bytes)
+
+    return dataclasses.replace(
+        spec, work=work,
+        run_kernel=lambda i: flash_attention(i["q"], i["k"], i["v"], causal=False),
+        run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], causal=False))
 
 
 def check_kernels(cfg, timer) -> dict:
@@ -281,7 +359,8 @@ def check_kernels(cfg, timer) -> dict:
         out = spec.run_kernel(inputs)
         ref = spec.run_oracle(inputs)
         torch.cuda.synchronize()
-        dtype = next(t.dtype for t in inputs.values() if t.is_floating_point())
+        dtype = next(t.dtype for t in inputs.values()
+                     if isinstance(t, torch.Tensor) and t.is_floating_point())
         tol = spec.tol(dtype)
         err, ok = _compare(out, ref, tol)
         rec = {"kernel": spec.name, "shape": label, "max_abs_err": err,
@@ -290,11 +369,12 @@ def check_kernels(cfg, timer) -> dict:
             ops, nbytes = spec.work(inputs)
             t_ops = ops / target.peak_for(dtype_name(dtype))
             t_bytes = nbytes / target.hbm_bandwidth
+            library = library_call(spec.name, inputs)
             rec.update({
                 "ms": timer.device_ms(lambda: spec.run_kernel(inputs)),
                 "eager_ms": timer.eager_ms(lambda: spec.run_kernel(inputs)),
                 "plain_ms": timer.device_ms(lambda: spec.run_oracle(inputs)),
-                "library_ms": timer.device_ms(library_call(spec.name, inputs)),
+                "library_ms": None if library is None else timer.device_ms(library),
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "ops": ops, "bytes": nbytes})
@@ -320,6 +400,26 @@ def check_kernels(cfg, timer) -> dict:
             i["a"], i["b"], scale, bias, ane_mode=True), run_oracle=lambda i: anemm_ref(
             i["a"], i["b"], scale, bias, ane_mode=True))
         check(ep, f"epilogue scale+bias+ane_mode {dtype_name(dtype)}", i, False)
+    # anemm's fused LUT epilogue: against its plain version, and bit for bit
+    # against anemm, then act_lut
+    for dtype in mm.dtypes:
+        for case in mm.cases:
+            i = mm.make_inputs(case, dtype, rng, "cuda")
+            table = table_operands("gelu", "cuda")
+            ep = dataclasses.replace(mm, run_kernel=lambda i: anemm(
+                i["a"], i["b"], epilogue="gelu"), run_oracle=lambda i: anemm_ref(
+                i["a"], i["b"], epilogue_table=table))
+            check(ep, f"epilogue=gelu {case.name} {dtype_name(dtype)}", i, False)
+            fused = anemm(i["a"], i["b"], epilogue="gelu")
+            if not torch.equal(fused, lut_activation("gelu")(anemm(i["a"], i["b"]))):
+                failures.append(f"anemm epilogue=gelu {case.name} {dtype_name(dtype)}: "
+                                "fused differs from anemm-then-act_lut")
+    # the encoder's non-causal attention, which the registry cases leave off
+    fl = registry.get("flash")
+    nc = noncausal_flash(fl)
+    for dtype in fl.dtypes:
+        i = {**fl.make_inputs(fl.cases[0], dtype, rng, "cuda"), "causal": False}
+        check(nc, f"non-causal {dtype_name(dtype)}", i, False)
     # the sliding-window mask, which the registry cases leave off
     fl, dec = registry.get("flash"), registry.get("decode_attention")
     for dtype in dec.dtypes:
@@ -358,6 +458,16 @@ def check_kernels(cfg, timer) -> dict:
         headline.setdefault(name, rec)
         if label.startswith("gate_up M=8"):
             headline[name] = rec                  # decode-time projection
+    # whisper-small's encoder attention (non-causal, L = 1500) and a decode
+    # step's cross-attention (8 lanes, one query against 1500 keys): timed,
+    # not headlines
+    w = configs.get_config(ENCODER_ARCH)
+    h_w, d_h, enc_len = w.n_heads, w.d_head, w.encoder_len
+    for b, sq in ((1, enc_len), (8, 1)):
+        i = {k: torch.from_numpy(rng.normal(size=(b, h_w, sq if k == "q" else enc_len, d_h)))
+             .to(device="cuda", dtype=torch.bfloat16) for k in ("q", "k", "v")}
+        check(nc, f"main non-causal B={b} Sq={sq} Skv={enc_len} H={h_w} d={d_h} bf16",
+              {**i, "causal": False}, True)
     # the fp32 head widens the bf16 unembed on every call (reference
     # layers.py:158-161): the copy's own device time
     unembed = torch.empty((cfg.d_model, cfg.padded_vocab), dtype=torch.bfloat16,
@@ -397,8 +507,10 @@ def main() -> int:
     emit("build", seconds=built["seconds"], built=built["built"], ptxas=ptxas)
 
     cfg = configs.get_config("tinyllama-1.1b")
-    headline = check_kernels(cfg, Timer())
+    timer = Timer()
+    headline = check_kernels(cfg, timer)
     check_parity()
+    check_parity_encdec()
     check_rows(cfg)
     # each kernel's launches come from the serve run whose path uses it
     launches, tokens = {}, {}
@@ -407,13 +519,14 @@ def main() -> int:
         kernels_of_run = ("anemm", "flash", "decode_attention") if form == "fp16" \
             else (FORM_KERNEL[form],)
         launches.update({k: run[k] for k in kernels_of_run})
-        profile_serve(form)
+        profile_serve(form, serve_argv(cfg, 1, form))
     for draft, branches in SPEC_RUNS:
         run = serve_spec(cfg, draft, branches, tokens["fp16"])
         if (draft, branches) == ("self", 1):
             launches["specdec"] = run["specdec"]
         if branches > 1:
             launches["specdec_tree"] = run["specdec_tree"]
+    launches.update(serve_encoder(timer))
 
     kernels = []
     for spec in registry.all_specs():
@@ -682,15 +795,14 @@ def serve_early_exit(cfg, branches: int) -> dict:
             **engine.stats(n_requests)}
 
 
-def profile_serve(form: str) -> None:
-    """One round of the serve phase in weight form `form` with the profiler
+def profile_serve(label: str, argv: list[str]) -> None:
+    """One round of a serve run (the CLI's `argv`) with the profiler
     tracing the device only: device time by kernel, and the device's busy
     share between the first and the last kernel of the round (its complement
     is the time the card sat idle waiting for the host). Tracing slows the
     host a little, so the profiled round's wall is reported beside it."""
-    cfg = configs.get_config("tinyllama-1.1b")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = serve.run(serve_argv(cfg, 1, form))
+        out = serve.run(argv)
     kernels = [(e.time_range.start, e.time_range.end,
                 e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
                 .split("(")[0].split("<")[0])
@@ -718,12 +830,163 @@ def profile_serve(form: str) -> None:
         busy += cur_e - cur_s
         window = max(e for _, e in spans) - first
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", weight_form=form, device_events=len(spans),
+    emit("profile", run=label, device_events=len(spans),
          profiled_wall_s=out["wall_s"], profiled_tok_per_s=out["tok_per_s"],
          device_busy_ms=busy / 1e3,
          device_busy_share=busy / window if spans else None,
          window_ms=window / 1e3 if spans else None,
          device_ms_by_kernel={k: v / 1e3 for k, v in top})
+
+
+def check_parity_encdec() -> None:
+    """whisper-small smoke, same weights and frames, on the card (kernels)
+    and on the CPU (plain versions): prefill (frames through the conv stem
+    and the encoder, the cross K/V built) and three teacher-forced decode
+    steps must agree at 4x the `anemm` tolerance, in fp32 and bf16."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(configs.get_smoke(ENCODER_ARCH), dtype=dtype)
+        cpu = build_model(cfg, device="cpu")
+        gpu = build_model(cfg, device="cuda")
+        params_cpu = cpu.init(torch.Generator().manual_seed(0))
+        params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+        rtol, atol = (4 * x for x in registry.get("anemm").tol(gpu.dtype))
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (2, 16), dtype=torch.int32, generator=gen)
+        frames = torch.randn((2,) + cfg.frame_shape, generator=gen).to(gpu.dtype)
+        c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens, "frames": frames})
+        c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda(),
+                                                 "frames": frames.cuda()})
+        errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
+        torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
+        c_cpu = merge_prefill_caches(cpu.init_cache(2, 24), c_cpu)
+        c_gpu = merge_prefill_caches(gpu.init_cache(2, 24), c_gpu)
+        tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        for i in range(3):
+            pos = torch.full((2,), 16 + i, dtype=torch.int32)
+            c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
+            c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
+            if not bool(torch.isfinite(d_gpu).all()):
+                raise AssertionError(f"{cfg.name} {dtype}: non-finite decode logits")
+            errs.append(float((d_gpu.cpu() - d_cpu).abs().max()))
+            torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
+            tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        routes = set(gpu.dispatcher.census())
+        want = {(k, "cuda") for k in ("anemm", "flash", "decode_attention", "conv2d")}
+        if routes != want:
+            raise AssertionError(f"{cfg.name} {dtype}: card routes {routes}")
+        emit("parity", config=cfg.name, weight_form="fp16", dtype=dtype,
+             max_abs_err=max(errs), tol=[rtol, atol], ok=True)
+
+
+def encoder_argv(rounds: int) -> list[str]:
+    return ["--arch", ENCODER_ARCH, "--schedule", "continuous", "--batch", "8",
+            "--prompt-lens", ENCODER_LENS, "--gen", str(SERVE_GEN), "--requests", str(rounds),
+            "--seed", "0", "--device", "cuda"]
+
+
+def serve_encoder(timer) -> dict:
+    """Full whisper-small through the serve CLI's entry point, then the stem
+    fused against unfused and the pools; returns the launches the kernels
+    line reports for conv2d, act_lut, avg_pool and max_pool. Checks: every
+    route cuda; per admission (prefill) conv2d 2, anemm 6 per encoder layer
+    + 2 (cross K/V) and 8 per decoder layer + the head, flash one per
+    encoder layer and two per decoder layer; per decode step anemm 8 per
+    decoder layer + the head, flash one (cross) and decode_attention one
+    (self) per decoder layer; act_lut 0 (fused)."""
+    cfg = configs.get_config(ENCODER_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    out = serve.run(encoder_argv(SERVE_ROUNDS))
+    launches = native.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    tokens = out["tokens"]
+    n_lanes = len(ENCODER_LENS.split(","))
+    if tokens.shape != (n_lanes, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"encoder serve tokens: shape {tokens.shape}, range "
+                             f"[{tokens.min()}, {tokens.max()}]")
+    if {b for _, b in out["routes"]} != {"cuda"}:
+        raise AssertionError(f"encoder serve routes {out['routes']}: every route must be cuda")
+    recs = out["records"]
+    decode_key = recs[-1].key
+    by_kind: dict[str, list[float]] = {}
+    for r in recs:
+        kind = r.key if r.key in NAMED_RECORDS else \
+            "decode" if r.key == decode_key else "prefill"
+        by_kind.setdefault(kind, []).append(r.wall_s)
+    n_prefill, n_decode = len(by_kind["prefill"]), len(by_kind["decode"])
+    l_e, l_d = cfg.n_encoder_layers, cfg.n_layers
+    want = {k: 0 for k in launches}
+    want.update({"conv2d": 2 * n_prefill,
+                 "anemm": (6 * l_e + 2 * l_d + 8 * l_d + 1) * n_prefill
+                 + (8 * l_d + 1) * n_decode,
+                 "flash": (l_e + 2 * l_d) * n_prefill + l_d * n_decode,
+                 "decode_attention": l_d * n_decode})
+    if launches != want:
+        raise AssertionError(f"encoder serve launches {launches}, expected {want}")
+    dispatches = {k: {"n": len(w), "wall_s": sum(w), "median_ms": statistics.median(w) * 1e3}
+                  for k, w in by_kind.items()}
+    emit("encoder_serve", config=cfg.name, dtype=cfg.dtype, n_encoder_layers=l_e,
+         n_layers=l_d, frames=list(cfg.frame_shape), lanes=n_lanes, prompt_lens=ENCODER_LENS,
+         gen=SERVE_GEN, rounds=SERVE_ROUNDS, tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+         n_dispatches=out["n_dispatches"], dispatches=dispatches,
+         cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
+         floor_measured_s=out["floor_measured_s"], dispatch_wall_s=out["dispatch_wall_s"],
+         work_s=out["work_s"], routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+         launches=launches, peak_memory_gb=peak_gb)
+
+    # the stem fused and unfused: each request's frames encoded alone (as an
+    # admission encodes them), same bits, 2 more act_lut launches each
+    engine = out["engine"]
+    model, params = engine.model, engine.params
+    rng = np.random.default_rng(0)
+    for n in (int(x) for x in ENCODER_LENS.split(",")):
+        rng.integers(0, cfg.vocab, size=(n,))      # the CLI's prompt draws
+    frames = [torch.from_numpy(np.asarray(rng.normal(size=cfg.frame_shape), np.float32))
+              .to(device="cuda", dtype=model.dtype)[None] for _ in range(n_lanes)]
+    encoded, counts, ms = {}, {}, {}
+    for fused in (True, False):
+        with dsp.use_dispatcher(model.dispatcher), dsp.fuse_epilogues(fused):
+            native.reset_launch_counts()
+            encoded[fused] = [encdec.encode(cfg, params["encdec"], f) for f in frames]
+            torch.cuda.synchronize()
+            counts[fused] = native.launch_counts()
+            ms[fused] = timer.eager_ms(lambda: encdec.encode(cfg, params["encdec"], frames[0]),
+                                       reps=5)
+    same = all(torch.equal(a, b) for a, b in zip(encoded[True], encoded[False]))
+    extra = {k: counts[False][k] - counts[True][k] for k in counts[True]}
+    if not same:
+        raise AssertionError("encoder: fused and unfused stems give different encoder outputs")
+    if extra != {k: (2 * n_lanes if k == "act_lut" else 0) for k in extra} or \
+            counts[True]["conv2d"] != 2 * n_lanes:
+        raise AssertionError(f"encoder: fused launches {counts[True]}, unfused {counts[False]}")
+    finite = all(bool(torch.isfinite(e).all()) for e in encoded[True])
+    if not finite:
+        raise AssertionError("encoder: non-finite encoder output")
+    emit("encoder_stem", requests=n_lanes, bit_identical=same,
+         launches_fused=counts[True], launches_unfused=counts[False],
+         encode_ms_fused=ms[True], encode_ms_unfused=ms[False])
+
+    # the pools, routed once each at the pyramid's shapes
+    disp = KernelDispatcher()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pooled = {}
+    native.reset_launch_counts()
+    with dsp.use_dispatcher(disp):
+        for name, (shape, window, stride, pad) in POOL_SHAPES.items():
+            x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            pooled[name] = getattr(dsp, name)(x, window=window, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    pool_launches = native.launch_counts()
+    if set(disp.census()) != {("avg_pool", "cuda"), ("max_pool", "cuda")} or \
+            {k: pool_launches[k] for k in POOL_SHAPES} != {"avg_pool": 1, "max_pool": 1}:
+        raise AssertionError(f"pools: routes {disp.census()}, launches {pool_launches}")
+    emit("pools", routes={f"{k}/{b}": n for (k, b), n in disp.census().items()},
+         shapes={k: list(v.shape) for k, v in pooled.items()})
+
+    profile_serve(ENCODER_ARCH, encoder_argv(1))
+    return {"conv2d": launches["conv2d"], "act_lut": counts[False]["act_lut"],
+            "avg_pool": pool_launches["avg_pool"], "max_pool": pool_launches["max_pool"]}
 
 
 if __name__ == "__main__":

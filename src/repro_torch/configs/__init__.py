@@ -2,17 +2,18 @@
 published config, `get_smoke(name)` the reduced same-family config the CPU
 tests instantiate (after `src/repro/configs/__init__.py`).
 
-Only the architectures the port serves are registered: tinyllama-1.1b for
-now. The others join as their model families are ported.
+Only the architectures the port serves are registered: tinyllama-1.1b and
+whisper-small. The others join as their model families are ported.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import tinyllama_1_1b
+from repro_torch.configs import tinyllama_1_1b, whisper_small
 from repro_torch.configs.base import ModelConfig, smoke
 
 _MODULES = {
     "tinyllama-1.1b": tinyllama_1_1b,
+    "whisper-small": whisper_small,
 }
 
 ARCH_NAMES = list(_MODULES)

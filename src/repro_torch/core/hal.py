@@ -57,3 +57,5 @@ H100 = Target(
 # ----------------------------------------------------------------------------
 
 ACCUM_OUT_CEILING = 32768.0           # 2^15 multiply-accumulate output port ceiling
+LUT_KNOTS = 33                        # activation table knot count (reference :291)
+SIGMOID_DOMAIN = (-9.938, 8.320)      # sigmoid table domain clamp (reference :293)

@@ -1,11 +1,21 @@
-// The tile loop of the port's matmuls: (M, K) x B -> (M, N) with an fp32
-// accumulator, shared by anemm (dense B), palette_matmul and sparse_matmul
-// (B packed in device memory, decoded in the loop). Each block owns one
+// The tile loop of the port's matmuls: A (M, K) x B (K, N) -> (M, N) with an
+// fp32 accumulator, shared by anemm (dense A and B), palette_matmul and
+// sparse_matmul (B packed in device memory, decoded in the loop) and conv2d
+// (A gathered from an NHWC image: an implicit GEMM). Each block owns one
 // output tile and loops over K itself (no split-K, so an output element's sum
 // order does not depend on M). 16-bit activations go through WMMA with fp32
 // fragments, fp32 activations through true fp32 FMA (never TF32). Ragged
-// edges are masked in the tile loads: A's K tail reads as zero and the
-// producer writes zero outside (K, N), so nothing is padded in device memory.
+// edges are masked in the tile loads: both producers write zero outside the
+// matrix, so nothing is padded in device memory.
+//
+// An A-tile producer AP provides
+//   template <int ROWS, int COLS, int LDA, int THREADS>
+//   __device__ void load(T* dst, int m0, int k0) const;      (16-bit loop)
+//     write the ROWS x COLS tile of A at (m0, k0) into dst (leading
+//     dimension LDA), zero outside the matrix; k0 is a multiple of 64;
+//   __device__ float at(int m, int k) const;                  (fp32 loop)
+//     one element of A, zero outside the matrix.
+// DenseA below reads a row-major matrix.
 //
 // A B-tile producer P provides
 //   struct Smem;                                  its shared-memory state
@@ -65,6 +75,60 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restri
   }
 }
 
+// A as a dense row-major (M, K) matrix in the activation's dtype
+template <typename T>
+struct DenseA {
+  const T* __restrict__ a;
+  int M, K;
+  int vec;  // K % 8 == 0 and a 16-byte aligned
+
+  template <int ROWS, int COLS, int LDA, int THREADS>
+  __device__ __forceinline__ void load(T* __restrict__ dst, int m0, int k0) const {
+    load_tile<T, ROWS, COLS, LDA, THREADS>(dst, a, K, M, K, m0, k0, vec);
+  }
+  __device__ __forceinline__ float at(int m, int k) const {
+    return (m < M && k < K) ? a[(size_t)m * K + k] : 0.0f;
+  }
+};
+
+template <typename T>
+DenseA<T> dense_a(const void* a, int M, int K) {
+  return {static_cast<const T*>(a), M, K,
+          (K % H_VEC == 0) && (reinterpret_cast<uintptr_t>(a) & 15u) == 0};
+}
+
+// B as a dense row-major (K, N) matrix in the activation's dtype
+template <typename T>
+struct DenseB {
+  const T* __restrict__ b;
+  int K, N;
+  int vec;  // N % 8 == 0 and b 16-byte aligned
+
+  struct Smem {};
+
+  __device__ void prepare(Smem&) const {}
+
+  template <typename U, int ROWS, int COLS, int LDB, int THREADS>
+  __device__ void load(U* __restrict__ dst, const Smem&, int k0, int n0) const {
+    static_assert(std::is_same_v<T, U>, "dense B is stored in the activation's dtype");
+    if constexpr (sizeof(T) == 2) {
+      load_tile<T, ROWS, COLS, LDB, THREADS>(dst, b, N, K, N, k0, n0, vec);
+    } else {
+      for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+        const int r = i / COLS, c = i % COLS;
+        const int gk = k0 + r, gn = n0 + c;
+        dst[r * LDB + c] = (gk < K && gn < N) ? b[(size_t)gk * N + gn] : 0.0f;
+      }
+    }
+  }
+};
+
+template <typename T>
+DenseB<T> dense_b(const void* b, int K, int N) {
+  return {static_cast<const T*>(b), K, N,
+          (N % H_VEC == 0) && (reinterpret_cast<uintptr_t>(b) & 15u) == 0};
+}
+
 template <typename P>
 __device__ __forceinline__ void prepare(const P& prod, typename P::Smem& ps) {
   if constexpr (!std::is_empty_v<typename P::Smem>) {
@@ -73,10 +137,10 @@ __device__ __forceinline__ void prepare(const P& prod, typename P::Smem& ps) {
   }
 }
 
-template <typename P, typename E>
+template <typename AP, typename P, typename E>
 __global__ void __launch_bounds__(F_THREADS)
-    matmul_f32(const float* __restrict__ A, const P prod, const E epi, float* __restrict__ C,
-               int M, int N, int K) {
+    matmul_f32(const AP ap, const P prod, const E epi, float* __restrict__ C, int M, int N,
+               int K) {
   __shared__ float As[F_BK][F_BM + 4];  // A tile stored k-major
   __shared__ __align__(16) float Bs[F_BK * F_LDB];
   __shared__ typename P::Smem ps;
@@ -93,8 +157,7 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int k0 = 0; k0 < K; k0 += F_BK) {
     for (int i = tid; i < F_BM * F_BK; i += F_THREADS) {
       const int r = i / F_BK, c = i % F_BK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.0f;
+      As[c][r] = ap.at(m0 + r, k0 + c);
     }
     prod.template load<float, F_BK, F_BN, F_LDB, F_THREADS>(Bs, ps, k0, n0);
     __syncthreads();
@@ -128,10 +191,9 @@ __global__ void __launch_bounds__(F_THREADS)
 // grid (M=512 x N=5632) still runs in one wave on 132 SMs
 constexpr int H_MIN_BLOCKS = 6;
 
-template <typename T, typename P, typename E>
+template <typename T, typename AP, typename P, typename E>
 __global__ void __launch_bounds__(H_THREADS, H_MIN_BLOCKS)
-    matmul_mma(const T* __restrict__ A, const P prod, const E epi, T* __restrict__ C, int M,
-               int N, int K, int vec_a) {
+    matmul_mma(const AP ap, const P prod, const E epi, T* __restrict__ C, int M, int N, int K) {
   using namespace nvcuda;
   __shared__ __align__(128) T As[H_BM * H_LDA];
   __shared__ __align__(128) T Bs[H_BK * H_LDB];
@@ -149,7 +211,7 @@ __global__ void __launch_bounds__(H_THREADS, H_MIN_BLOCKS)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   for (int k0 = 0; k0 < K; k0 += H_BK) {
-    load_tile<T, H_BM, H_BK, H_LDA, H_THREADS>(As, A, K, M, K, m0, k0, vec_a);
+    ap.template load<H_BM, H_BK, H_LDA, H_THREADS>(As, m0, k0);
     prod.template load<T, H_BK, H_BN, H_LDB, H_THREADS>(Bs, ps, k0, n0);
     __syncthreads();
 #pragma unroll
@@ -182,33 +244,34 @@ __global__ void __launch_bounds__(H_THREADS, H_MIN_BLOCKS)
   }
 }
 
-template <typename P, typename E>
-int launch_f32(const P& prod, const E& epi, const void* a, void* out, int M, int N, int K,
+template <typename AP, typename P, typename E>
+int launch_f32(const AP& ap, const P& prod, const E& epi, void* out, int M, int N, int K,
                cudaStream_t s) {
   dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM);
-  matmul_f32<P, E><<<grid, F_THREADS, 0, s>>>(static_cast<const float*>(a), prod, epi,
-                                              static_cast<float*>(out), M, N, K);
+  matmul_f32<AP, P, E><<<grid, F_THREADS, 0, s>>>(ap, prod, epi, static_cast<float*>(out), M,
+                                                  N, K);
   return cudaGetLastError();
 }
 
-template <typename T, typename P, typename E>
-int launch_mma(const P& prod, const E& epi, const void* a, void* out, int M, int N, int K,
+template <typename T, typename AP, typename P, typename E>
+int launch_mma(const AP& ap, const P& prod, const E& epi, void* out, int M, int N, int K,
                cudaStream_t s) {
-  const int vec_a = (K % H_VEC == 0) && (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
   dim3 grid((N + H_BN - 1) / H_BN, (M + H_BM - 1) / H_BM);
-  matmul_mma<T, P, E><<<grid, H_THREADS, 0, s>>>(static_cast<const T*>(a), prod, epi,
-                                                 static_cast<T*>(out), M, N, K, vec_a);
+  matmul_mma<T, AP, P, E><<<grid, H_THREADS, 0, s>>>(ap, prod, epi, static_cast<T*>(out), M,
+                                                     N, K);
   return cudaGetLastError();
 }
 
-// Launch the loop with no epilogue for an fp32 or bf16 activation (dtype
-// code) on `stream`; returns the launch's CUDA error.
+// Launch the loop with a dense A and no epilogue for an fp32 or bf16
+// activation (dtype code) on `stream`; returns the launch's CUDA error.
 template <typename P>
 int launch(const P& prod, const void* a, void* out, int M, int N, int K, int dtype,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_f32(prod, Identity{}, a, out, M, N, K, s);
-  if (dtype == kBF16) return launch_mma<__nv_bfloat16>(prod, Identity{}, a, out, M, N, K, s);
+  if (dtype == kF32) return launch_f32(dense_a<float>(a, M, K), prod, Identity{}, out, M, N, K, s);
+  if (dtype == kBF16)
+    return launch_mma<__nv_bfloat16>(dense_a<__nv_bfloat16>(a, M, K), prod, Identity{}, out, M,
+                                     N, K, s);
   return cudaErrorInvalidValue;
 }
 

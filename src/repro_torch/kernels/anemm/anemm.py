@@ -4,7 +4,10 @@ Replaces the Pallas TPU kernel `src/repro/kernels/anemm/anemm.py:69`; the
 kernel is `src/repro_torch/csrc/anemm.cu`, which also says what bounds it on
 an H100. `anemm(a, b)` computes `a @ b` for a (M, K) and b (K, N) of one
 dtype (fp32, bf16 or fp16) with an fp32 accumulator, then per-N `scale`,
-`bias`, ANE-mode saturation and one rounding to the input dtype.
+`bias`, ANE-mode saturation, with `epilogue=` (a table name of
+`core.numerics`) the LUT activation after a rounding to the input dtype
+(the reference's output-port rule, reference :53-61), and one rounding to
+the input dtype.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version `anemm_ref`. Backward (reference `ops.py:29`) comes with training.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native
+from repro_torch.kernels.act_lut.ops import table_operands
 from repro_torch.kernels.anemm.ref import anemm_ref
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -33,9 +37,6 @@ def _vector(x, n: int, what: str, device) -> torch.Tensor | None:
 def anemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None,
           bias: torch.Tensor | None = None, *, ane_mode: bool = False,
           epilogue: str | None = None) -> torch.Tensor:
-    if epilogue is not None:
-        raise NotImplementedError(
-            "anemm: the fused LUT epilogue waits for the act_lut kernel's port")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"anemm: want a (M, K) and b (K, N), got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -43,8 +44,9 @@ def anemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None,
         raise TypeError(f"anemm: dtypes {a.dtype}, {b.dtype}; want one of {DTYPES}")
     if a.device != b.device:
         raise ValueError(f"anemm: a on {a.device}, b on {b.device}")
+    table = None if epilogue is None else table_operands(epilogue, a.device)
     if a.device.type == "cpu":
-        return anemm_ref(a, b, scale, bias, ane_mode=ane_mode)
+        return anemm_ref(a, b, scale, bias, ane_mode=ane_mode, epilogue_table=table)
     if a.device.type != "cuda":
         raise ValueError(f"anemm: no kernel for tensors on {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -61,6 +63,6 @@ def anemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None,
             "anemm", a.data_ptr(), b.data_ptr(),
             None if scale32 is None else scale32.data_ptr(),
             None if bias32 is None else bias32.data_ptr(),
-            out.data_ptr(), m, n, k, native.dtype_code(a.dtype),
+            None if table is None else table.data_ptr(), out.data_ptr(), m, n, k, native.dtype_code(a.dtype),
             int(ane_mode), torch.cuda.current_stream(a.device).cuda_stream)
     return out

@@ -50,7 +50,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # kernel -> (source file, C entry point, argtypes)
 KERNELS: dict[str, tuple[str, str, list]] = {
     "anemm": ("anemm.cu", "anemm_launch",
-              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flash": ("flash_attention.cu", "flash_attention_launch",
               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
               + [_I64] * 9 + [_I, _I, _F, _I, _P]),
@@ -65,6 +65,11 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "specdec": ("specdec.cu", "specdec_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "specdec_tree": ("specdec.cu", "specdec_tree_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "act_lut": ("act_lut.cu", "act_lut_launch", [_P, _P, _P, _I64, _I, _I, _P]),
+    "conv2d": ("conv2d.cu", "conv2d_launch", [_P] * 5 + [_I] * 15 + [_P]),
+    # one source, two entry points: the avg and the max window reduction
+    "avg_pool": ("pool.cu", "avg_pool_launch", [_P, _P] + [_I] * 12 + [_F, _I, _P]),
+    "max_pool": ("pool.cu", "max_pool_launch", [_P, _P] + [_I] * 12 + [_F, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

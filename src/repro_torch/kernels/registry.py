@@ -8,8 +8,10 @@ Pallas kernel it replaces, and counts the work its inputs need (operations
 and bytes), from which `chip_smoke.py` computes each kernel's bound.
 
 Rows: `anemm` (reference :149), `palette` (:183), `sparse` (:221), `flash`
-(:287), `decode_attention` (:332), `specdec` (:500) and `specdec_tree` (:561).
-The other reference rows are still to be ported (ROADMAP queue B).
+(:287), `decode_attention` (:332), `act_lut` (:447), `specdec` (:500),
+`specdec_tree` (:561), `conv2d` (:626), `avg_pool` (:699) and `max_pool`
+(:721). The reference's `paged_decode_attention` row (:398) is still to be
+ported (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -421,9 +423,192 @@ def _register_specdec() -> None:
     ))
 
 
+# ---------------------------------------------------------------------------
+# act_lut — 33-knot piecewise-linear activation evaluation
+# ---------------------------------------------------------------------------
+
+
+def _act_lut_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    from repro_torch.core.numerics import build_lut
+    from repro_torch.kernels.act_lut.ops import table_operands
+
+    (n,) = case.dims
+    table = build_lut("sigmoid")
+    lo, hi = table.xs[0], table.xs[-1]
+    x = rng.uniform(lo - 2.0, hi + 2.0, size=(n,)).astype(np.float32)
+    return {"x": torch.from_numpy(x).to(device=device, dtype=dtype),
+            "table": table_operands("sigmoid", device), "name": "sigmoid"}
+
+
+def _act_lut_work(i: dict) -> tuple[float, float]:
+    """32 compares and the segment's multiply-add per element (the
+    reference's cost, 40 an element); x read once, y written once, the
+    table read once."""
+    n = i["x"].numel()
+    return 40.0 * n, 2.0 * _nbytes(i["x"]) + _nbytes(i["table"])
+
+
+def _register_act_lut() -> None:
+    from repro_torch.kernels.act_lut.ops import lut_activation
+    from repro_torch.kernels.act_lut.ref import act_lut_ref
+
+    register(KernelSpec(
+        name="act_lut",
+        dtypes=(torch.float32, torch.bfloat16),
+        cases=(
+            ShapeCase("block", (1024,)),
+            ShapeCase("long", (4096,)),
+            ShapeCase("ragged", (1311,), edge=True),
+            ShapeCase("tiny", (7,), edge=True),
+        ),
+        make_inputs=_act_lut_inputs,
+        run_kernel=lambda i: lut_activation(i["name"])(i["x"]),
+        run_oracle=lambda i: act_lut_ref(i["x"], i["table"]),
+        # the PWL table itself is fp16-grid accurate; bf16 x adds input
+        # rounding (reference :467)
+        tol=lambda dt: (0.0, 2e-3) if dt == torch.float32 else (0.0, 2e-2),
+        work=_act_lut_work,
+        source="src/repro_torch/csrc/act_lut.cu",
+        replaces="src/repro/kernels/act_lut/act_lut.py:58",
+    ))
+
+
+# ---------------------------------------------------------------------------
+# conv2d / avg_pool / max_pool — the conv-engine family (NHWC)
+# ---------------------------------------------------------------------------
+
+
+def _conv_tol(dtype) -> tuple[float, float]:
+    # fp32 covers tap-loop accumulation-order differences; narrow dtypes add
+    # a store rounding and, for fused-LUT cases, a possible PWL segment flip
+    # at a knot boundary (reference :597)
+    return (2e-3, 2e-3) if dtype == torch.float32 else (3e-2, 3e-2)
+
+
+def _conv2d_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    b, h, w, cin, cout, kh, kw, sh, sw, same = case.dims
+    out = {"x": _normal(rng, (b, h, w, cin), dtype, device),
+           "w": torch.from_numpy(rng.normal(size=(kh, kw, cin, cout)) * 0.2).to(
+               device=device, dtype=dtype),
+           "bias": _normal(rng, (cout,), dtype, device),
+           "stride": (sh, sw), "padding": "SAME" if same else "VALID"}
+    if case.name.startswith("fused_"):
+        out["epilogue"] = case.name.split("_", 1)[1]
+    return out
+
+
+def _conv2d_work(i: dict) -> tuple[float, float]:
+    """2·B·OH·OW·KH·KW·Cin·Cout operations (every tap, as the reference's
+    cost counts them); x, w, bias (and a fused table) read once, the output
+    written once."""
+    from repro_torch.kernels.conv.ref import out_extent
+
+    b, h, wd, cin = i["x"].shape
+    kh, kw, _, cout = i["w"].shape
+    (sh, sw), pad = i["stride"], i["padding"]
+    n_out = b * out_extent(h, kh, sh, pad) * out_extent(wd, kw, sw, pad)
+    table = 99 * 4 if i.get("epilogue") else 0
+    return (2.0 * n_out * kh * kw * cin * cout,
+            _nbytes(i["x"], i["w"], i["bias"]) + table + n_out * cout * i["x"].element_size())
+
+
+def _register_conv2d() -> None:
+    from repro_torch.kernels.conv.ops import conv2d
+    from repro_torch.kernels.conv.ref import conv2d_ref
+
+    def plain(i: dict) -> torch.Tensor:
+        from repro_torch.kernels.act_lut.ops import table_operands
+
+        name = i.get("epilogue")
+        return conv2d_ref(i["x"], i["w"], i["bias"], stride=i["stride"],
+                          padding=i["padding"],
+                          epilogue_table=None if name is None else
+                          table_operands(name, i["x"].device))
+
+    register(KernelSpec(
+        name="conv2d",
+        dtypes=(torch.float32, torch.bfloat16, torch.float16),
+        cases=(
+            # dims = (B, H, W, Cin, Cout, KH, KW, SH, SW, same?)
+            ShapeCase("same_s1", (2, 16, 16, 8, 128, 3, 3, 1, 1, 1)),
+            ShapeCase("strided", (1, 20, 16, 8, 128, 3, 3, 2, 2, 1)),
+            ShapeCase("fused_gelu", (1, 12, 12, 8, 128, 3, 3, 1, 1, 1)),
+            ShapeCase("valid_s1", (2, 10, 10, 16, 64, 3, 3, 1, 1, 0)),
+            ShapeCase("ragged_tail", (1, 17, 13, 5, 33, 3, 3, 2, 2, 1), edge=True),
+            ShapeCase("pointwise", (2, 8, 8, 24, 48, 1, 1, 1, 1, 1), edge=True),
+            ShapeCase("stride_gt_k", (1, 12, 12, 8, 16, 2, 2, 3, 3, 0), edge=True),
+        ),
+        make_inputs=_conv2d_inputs,
+        run_kernel=lambda i: conv2d(i["x"], i["w"], i["bias"], stride=i["stride"],
+                                    padding=i["padding"], epilogue=i.get("epilogue")),
+        run_oracle=plain,
+        tol=_conv_tol,
+        work=_conv2d_work,
+        source="src/repro_torch/csrc/conv2d.cu",
+        replaces="src/repro/kernels/conv/conv2d.py:95",
+    ))
+
+
+def _pool_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    b, h, w, c, wh, ww, sh, sw, same = case.dims
+    return {"x": _normal(rng, (b, h, w, c), dtype, device),
+            "window": (wh, ww), "stride": (sh, sw),
+            "padding": "SAME" if same else "VALID"}
+
+
+_POOL_CASES = (
+    # dims = (B, H, W, C, WH, WW, SH, SW, same?)
+    ShapeCase("win2_s2", (2, 16, 16, 32, 2, 2, 2, 2, 0)),
+    ShapeCase("win3_s2_same", (1, 15, 15, 16, 3, 3, 2, 2, 1)),
+    ShapeCase("overlap", (2, 12, 12, 8, 3, 3, 1, 1, 0)),
+    ShapeCase("ragged_tail", (1, 17, 13, 5, 3, 3, 2, 2, 1), edge=True),
+    ShapeCase("global", (2, 8, 8, 16, 8, 8, 8, 8, 0), edge=True),
+)
+
+
+def _pool_work(i: dict) -> tuple[float, float]:
+    """One operation per tap of every output; x read once, the output
+    written once."""
+    from repro_torch.kernels.conv.ref import out_extent
+
+    b, h, w, c = i["x"].shape
+    (wh, ww), (sh, sw), pad = i["window"], i["stride"], i["padding"]
+    n_out = b * out_extent(h, wh, sh, pad) * out_extent(w, ww, sw, pad) * c
+    return float(n_out * wh * ww), _nbytes(i["x"]) + n_out * i["x"].element_size()
+
+
+def _register_pools() -> None:
+    from repro_torch.kernels.conv.ops import avg_pool, max_pool
+    from repro_torch.kernels.conv.ref import avg_pool_ref, max_pool_ref
+
+    for name, kernel, plain, tol, line in (
+            # one fp32 sum each side; only the tap order could differ
+            ("avg_pool", avg_pool, avg_pool_ref,
+             lambda dt: (1e-5, 1e-5) if dt == torch.float32 else (1e-2, 1e-2), 73),
+            # max is order-free: exact or wrong
+            ("max_pool", max_pool, max_pool_ref, lambda dt: (0.0, 0.0), 82)):
+        register(KernelSpec(
+            name=name,
+            dtypes=(torch.float32, torch.bfloat16, torch.float16),
+            cases=_POOL_CASES,
+            make_inputs=_pool_inputs,
+            run_kernel=lambda i, f=kernel: f(i["x"], window=i["window"], stride=i["stride"],
+                                             padding=i["padding"]),
+            run_oracle=lambda i, f=plain: f(i["x"], window=i["window"], stride=i["stride"],
+                                            padding=i["padding"]),
+            tol=tol,
+            work=_pool_work,
+            source="src/repro_torch/csrc/pool.cu",
+            replaces=f"src/repro/kernels/conv/pool.py:{line}",
+        ))
+
+
 _register_anemm()
 _register_palette()
 _register_sparse()
 _register_flash()
 _register_decode()
+_register_act_lut()
 _register_specdec()
+_register_conv2d()
+_register_pools()

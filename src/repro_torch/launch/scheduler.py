@@ -4,7 +4,9 @@ After `src/repro/launch/scheduler.py`: `Request` / `RequestResult` (:82,
 :100), prompt-length buckets (:109, :120), `merge_prefill_caches` (:136),
 lane admission and reset (:167-239), greedy `TokenSampler` (:249),
 `_SchedulerBase` (:315), `SequentialSchedule` (:454) and `ContinuousSchedule`
-(:497). The speculative schedule (`launch/speculative.py`) builds on
+(:497), with the encoder-decoder's per-request frames (`Request.frames`,
+`_prefill_batch` :382, the bucket refusal of `_check` :416). The
+speculative schedule (`launch/speculative.py`) builds on
 `ContinuousSchedule` and registers itself in `SCHEDULES` as "spec". Not
 ported yet: mesh placement, the prefix pool, chunked prefill, categorical
 sampling (it needs `jax.random`'s threefry in torch) and the SLO schedule.
@@ -44,6 +46,7 @@ class Request:
     prompt: np.ndarray            # (L,) int32 token ids, L >= 1
     max_new_tokens: int
     arrival: int = 0              # scheduler step at which the request exists
+    frames: np.ndarray | None = None   # encdec only: cfg.frame_shape
 
     def __post_init__(self) -> None:
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -156,10 +159,14 @@ def admit_into_slot(dec_caches: Any, pf_caches: Any, slot: int) -> Any:
 
 def reset_slot(dec_caches: Any, slot: int) -> Any:
     """Clear lane `slot` for a decode-only admission: `pos` to -1 (nothing
-    valid); the KV payload is left as is (masked by pos)."""
+    valid), any leaf without a named time axis to zeros (the init_cache
+    state); the KV payload is left as is (masked by pos)."""
     def reset(path, dst):
-        if _leaf_name(path) == "pos":
+        name = _leaf_name(path)
+        if name == "pos":
             dst[:, slot] = -1
+        elif name not in TIME_MERGE_LEAVES:
+            dst[:, slot] = 0
         return dst
     return map_with_path(reset, dec_caches)
 
@@ -238,6 +245,17 @@ class _SchedulerBase:
     def _tokens(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, np.int32), device=self.device)
 
+    def _prefill_batch(self, tokens: np.ndarray, frames: np.ndarray | None) -> dict:
+        """The prefill program's batch: the token ids and, for an
+        encoder-decoder, the request's frames in the model's dtype."""
+        batch = {"tokens": self._tokens(tokens)}
+        if self.cfg.family == "encdec":
+            if frames is None:
+                raise ValueError("encdec serving needs per-request frames")
+            batch["frames"] = torch.as_tensor(np.asarray(frames)[None]).to(
+                device=self.device, dtype=self.model.dtype)
+        return batch
+
     def _prefill_program(self, batch: dict):
         return self.cache.compile(self.model.prefill, self.params, batch)
 
@@ -257,6 +275,11 @@ class _SchedulerBase:
         if need > self.max_len:
             raise ValueError(f"request {req.rid}: prompt {req.prompt.size} + gen "
                              f"{req.max_new_tokens} exceeds max_len {self.max_len}")
+        if self.cfg.family == "encdec" and bucket_for(req.prompt.size, self.buckets) == 0:
+            raise ValueError(
+                f"request {req.rid}: encdec prompts must reach a prefill "
+                f"bucket (cross-attention cache is built at prefill); "
+                f"buckets={self.buckets}")
 
     # -- floor accounting ---------------------------------------------------
     def stats(self, n_requests: int) -> dict:
@@ -283,7 +306,7 @@ class SequentialSchedule(_SchedulerBase):
         for step, req in enumerate(sorted(requests, key=lambda r: (r.arrival, r.rid))):
             self._check(req)
             L = req.prompt.size
-            batch = {"tokens": self._tokens(req.prompt[None])}
+            batch = self._prefill_batch(req.prompt[None], req.frames)
             prefill, pkey = self._prefill_program(batch)
             self.stream.encode_operation(prefill, (self.params, batch), pkey, batch=1)
             pf_caches, logits = self.stream.execute_sync()[0]
@@ -320,7 +343,24 @@ class ContinuousSchedule(_SchedulerBase):
 
     name = "continuous"
 
-    def __init__(self, model, params, cfg, *, n_slots: int, max_len: int, **kw) -> None:
+    def __init__(self, model, params, cfg, *, n_slots: int, max_len: int,
+                 prefix_cache: bool = False, prefill_chunk: int | None = None, **kw) -> None:
+        # the reference's knobs (:509-537): an encoder-decoder refuses them
+        # in the reference's words; anything else waits for their port
+        if prefill_chunk is not None:
+            if cfg.family == "encdec":
+                raise ValueError(
+                    "chunked prefill cannot serve encdec: the cross-attention "
+                    "cache is built by the monolithic prefill program, so a "
+                    "decode-mode chunk has no frames to attend to")
+            raise NotImplementedError("chunked prefill is not ported yet")
+        if prefix_cache:
+            if cfg.family == "encdec":
+                raise ValueError(
+                    "prefix cache cannot serve encdec: the cross-attention "
+                    "cache is built from per-request frames, so token-hash "
+                    "block sharing would alias state across requests")
+            raise NotImplementedError("the prefix pool is not ported yet")
         super().__init__(model, params, cfg, max_len=max_len, **kw)
         if n_slots < 1:
             raise ValueError(f"continuous schedule needs n_slots >= 1, got {n_slots}")
@@ -345,7 +385,7 @@ class ContinuousSchedule(_SchedulerBase):
             self.caches = self.stream.execute_sync()[0]
             slot.next_pos, slot.next_tok = 0, int(req.prompt[0])
         else:
-            batch = {"tokens": self._tokens(req.prompt[None, :bucket])}
+            batch = self._prefill_batch(req.prompt[None, :bucket], req.frames)
             prefill, pkey = self._prefill_program(batch)
             self.stream.encode_operation(prefill, (self.params, batch), pkey, batch=1)
             pf_caches, logits = self.stream.execute_sync()[0]

@@ -4,6 +4,8 @@
         --batch 8 --prompt-lens 37,64,100,128,200,256,300,512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --schedule spec --draft self --draft-depth 4 --batch 2 --gen 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --batch 8 --prompt-lens 8,16,24,32,48,64,100,128 --gen 32
 
 After `src/repro/launch/serve.py:119-419`. The model is built on the chosen
 device with a `KernelDispatcher`: on `--device cuda` (the default) every
@@ -14,7 +16,11 @@ exits with an error instead of falling back.
 
 Weights are random, drawn from a `torch.Generator` seeded with `--seed`;
 prompts are drawn with numpy from the same seed, as the reference draws
-them. `--weight-form int4_palette|sparse` packs every eligible matmul weight
+them; an encoder-decoder (`--arch whisper-small`) then draws one log-mel
+frame array per request (`cfg.frame_shape`, float32 normals) from the same
+generator, right after the prompts, as the reference does, and every prompt
+must reach a prefill bucket (8 or more tokens). `--weight-form
+int4_palette|sparse` packs every eligible matmul weight
 after init, on the model's device (`optim.compression.compress_model_params`),
 and those matmuls then run the `palette` / `sparse` kernels. The report line
 is the reference's, followed by the measured dispatch floor, the route
@@ -112,6 +118,9 @@ def run(argv=None) -> dict:
             else [args.prompt_len] * args.batch)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32) for L in lens]
+    frames = [None] * len(lens)
+    if cfg.family == "encdec":
+        frames = [np.asarray(rng.normal(size=cfg.frame_shape), np.float32) for _ in lens]
     max_len = max(lens) + args.gen
 
     program_cache = ProgramCache()
@@ -130,7 +139,8 @@ def run(argv=None) -> dict:
     native.reset_launch_counts()
     t0 = time.perf_counter()
     for r in range(max(args.requests, 1)):
-        reqs = [Request(rid=r * len(lens) + i, prompt=prompts[i], max_new_tokens=args.gen)
+        reqs = [Request(rid=r * len(lens) + i, prompt=prompts[i], max_new_tokens=args.gen,
+                        frames=frames[i])
                 for i in range(len(lens))]
         results = engine.run(reqs)
     wall = time.perf_counter() - t0

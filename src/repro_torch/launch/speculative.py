@@ -217,6 +217,10 @@ class SpeculativeSchedule(ContinuousSchedule):
     def __init__(self, model, params, cfg, *, n_slots: int, max_len: int,
                  stream: AsyncExecutionStream, draft_depth: int = 4, draft: str = "shrink",
                  drafter: Drafter | None = None, draft_branches: int = 1, **kw) -> None:
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "SpeculativeSchedule: speculative decoding of an encoder-decoder "
+                "(per-request frames in the joint admission) is not ported yet")
         if kw.pop("prefix_cache", False):
             raise ValueError(
                 "SpeculativeSchedule does not route admissions through the paged KV "

@@ -3,8 +3,9 @@
 After `src/repro/models/attention.py`, the non-MLA, no-window path:
 `init_kv_cache` (:268), `_qkv` (:285), `attention_forward` (:297),
 `_write_prefill_cache` (:353), the one-token `_append_cache` (:367-384),
-`_decode_attention` (:405) and the forward of `chunked_attention` (:233),
-which is the flash route's plain version.
+`_decode_attention` (:405), the forward of `chunked_attention` (:233),
+which is the flash route's plain version, and the encoder-decoder's
+`cross_attention_forward` / `encode_cross_kv` (:518-542).
 
 Caches keep the reference's layout, `{"k": (B, S, KV, dh), "v": ...,
 "pos": (B, S) int32}` with -1 marking an empty slot. Decode writes the new
@@ -24,7 +25,10 @@ NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
-                   stack: tuple[int, ...] = ()) -> Params:
+                   stack: tuple[int, ...] = (), cross: bool = False) -> Params:
+    """The GQA projections; a `cross` attention (reference :40) takes the
+    same ones (its queries from the decoder, keys and values from the
+    encoder output)."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     std = d ** -0.5
     p = {
@@ -183,3 +187,24 @@ def _decode_attention(q, cache, positions, window: int | None = None):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", w, cache["v"].float())
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                            enc_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder stream x (B, S, D) against the encoder's precomputed (k, v)
+    (B, enc_len, KV, dh): non-causal through the flash route, no RoPE."""
+    q = dsp.linear(x, p["wq"], bias=p.get("bq"))
+    k, v = enc_kv
+    out = dsp.flash_route(dsp.active_dispatcher(), q, k, v, causal=False)
+    return dsp.linear(out, p["wo"], n_contract=2, bias=p.get("bo"))
+
+
+def encode_cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
+    k = dsp.linear(enc_out, p["wk"], bias=p.get("bk"))
+    v = dsp.linear(enc_out, p["wv"], bias=p.get("bv"))
+    return k, v

@@ -3,9 +3,11 @@
 After `src/repro/models/dispatched.py`: `linear` (:290, through
 `_matmul_dense` :264 and `_matmul_packed` :275), the packed weights
 (`DispatchedWeight` :53, `pack_linear_weight` :138, `packable` :181),
-`flash_route` (:328), `decode_route` (:347), `route_and_run` (:253) and the
-dispatcher scope `use_dispatcher` / `active_dispatcher` (:198). Each cell
-resolves through the active `KernelDispatcher`: a CUDA tensor runs the
+`flash_route` (:328), `decode_route` (:347), `route_and_run` (:253), the
+dispatcher scope `use_dispatcher` / `active_dispatcher` (:198), the epilogue
+fusion scope `fuse_epilogues` / `epilogue_fusion_active` (:220-236) and the
+conv family's routes `conv2d`, `avg_pool` and `max_pool` (:368-446). Each
+cell resolves through the active `KernelDispatcher`: a CUDA tensor runs the
 hand-written kernel, a CPU tensor the kernel's plain PyTorch version.
 
 A packed weight routes to the `palette` or `sparse` kernel, never to
@@ -13,9 +15,9 @@ A packed weight routes to the `palette` or `sparse` kernel, never to
 packed form raises there (the reference's HAL gate would fall back to the
 plain version instead; the port has no fallback on the card).
 
-The port has no undispatched matmul path: the reference's plain
-`dot_general` fallback would be a library matmul outside any kernel, so
-`linear` outside a dispatcher scope raises.
+The port has no undispatched path: the reference's plain `dot_general`
+and conv fallbacks would be library calls outside any kernel, so `linear`
+and the conv family outside a dispatcher scope raise.
 """
 
 from __future__ import annotations
@@ -182,6 +184,26 @@ def active_dispatcher() -> KernelDispatcher | None:
     return _SCOPE[-1] if _SCOPE else None
 
 
+_FUSION: list[bool] = []
+
+
+@contextlib.contextmanager
+def fuse_epilogues(on: bool) -> Iterator[None]:
+    """Scope the conv LUT-epilogue fusion choice. Fused (the default) runs
+    the activation at the producing kernel's output port, one launch;
+    unfused routes a separate `act_lut` afterwards, the two-launch pipeline.
+    Both give the same bits."""
+    _FUSION.append(on)
+    try:
+        yield
+    finally:
+        _FUSION.pop()
+
+
+def epilogue_fusion_active() -> bool:
+    return _FUSION[-1] if _FUSION else True
+
+
 def _require_dispatcher(what: str) -> KernelDispatcher:
     disp = active_dispatcher()
     if disp is None:
@@ -269,3 +291,58 @@ def decode_route(disp: KernelDispatcher, q: torch.Tensor,
         disp, "decode_attention", q,
         lambda: decode_attention(q, k_cache, v_cache, positions, current),
         lambda: decode_attention_ref(q, k_cache, v_cache, positions, current))
+
+
+# ---------------------------------------------------------------------------
+# Conv-family routes (encoder stems, vision front ends)
+# ---------------------------------------------------------------------------
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
+           stride: tuple[int, int] = (1, 1), padding: str = "SAME",
+           act: str | None = None) -> torch.Tensor:
+    """The conv every encoder stem calls (NHWC x, HWIO w). With `act` and
+    fusion on (the default): ONE routed `conv2d` with the LUT activation at
+    its output port; with fusion off: a routed `conv2d`, then a routed
+    `act_lut`, bit-identical."""
+    from repro_torch.kernels.act_lut.ops import lut_activation, lut_apply_ref, table_operands
+    from repro_torch.kernels.conv.ops import conv2d as conv_kernel
+    from repro_torch.kernels.conv.ref import conv2d_ref
+
+    disp = _require_dispatcher("conv2d()")
+    epilogue = act if act is not None and epilogue_fusion_active() else None
+    table = None if epilogue is None else table_operands(epilogue, x.device)
+    out = route_and_run(
+        disp, "conv2d", x,
+        lambda: conv_kernel(x, w, bias, stride=stride, padding=padding, epilogue=epilogue),
+        lambda: conv2d_ref(x, w, bias, stride=stride, padding=padding,
+                           epilogue_table=table))
+    if act is None or epilogue is not None:
+        return out
+    return route_and_run(disp, "act_lut", out, lambda: lut_activation(act)(out),
+                         lambda: lut_apply_ref(out, act))
+
+
+def _pool(x: torch.Tensor, *, window, stride, padding, kind: str) -> torch.Tensor:
+    from repro_torch.kernels.conv import ops as conv_ops
+    from repro_torch.kernels.conv import ref as conv_ref
+
+    native = getattr(conv_ops, kind)
+    plain = getattr(conv_ref, f"{kind}_ref")
+    disp = _require_dispatcher(f"{kind}()")
+    return route_and_run(
+        disp, kind, x,
+        lambda: native(x, window=window, stride=stride, padding=padding),
+        lambda: plain(x, window=window, stride=stride, padding=padding))
+
+
+def avg_pool(x: torch.Tensor, *, window: tuple[int, int],
+             stride: tuple[int, int] | None = None, padding: str = "VALID") -> torch.Tensor:
+    """Routed NHWC average pooling (count-include-pad)."""
+    return _pool(x, window=window, stride=stride or window, padding=padding, kind="avg_pool")
+
+
+def max_pool(x: torch.Tensor, *, window: tuple[int, int],
+             stride: tuple[int, int] | None = None, padding: str = "VALID") -> torch.Tensor:
+    """Routed NHWC max pooling."""
+    return _pool(x, window=window, stride=stride or window, padding=padding, kind="max_pool")

@@ -1,4 +1,5 @@
-"""Common layers: norms, RoPE, the SwiGLU MLP, embeddings and the logits head.
+"""Common layers: norms, RoPE, the MLPs, embeddings, the logits head and the
+encoder's sinusoidal positions.
 
 After `src/repro/models/layers.py`. Parameters are plain dicts of tensors
 with the reference's names, shapes and dtypes; `init_*` draw from the same
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,23 +81,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# MLP (the GLU path; the reference's plain gelu MLP is not on the slice)
+# MLPs: the GLU path and the plain two-matrix gelu MLP (`act="gelu_mlp"`)
 # ---------------------------------------------------------------------------
 
-_ACTS = {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default, the tanh approximation (not the erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, d: int, f: int, dtype,
              stack: tuple[int, ...] = ()) -> Params:
-    if cfg.act == "gelu_mlp":
-        raise NotImplementedError("the plain gelu MLP is not ported yet")
     std_in, std_out = d ** -0.5, f ** -0.5
+    if cfg.act == "gelu_mlp":                           # plain 2-matrix MLP
+        p = {"wi": normal(gen, stack + (d, f), dtype, std_in),
+             "wo": normal(gen, stack + (f, d), dtype, std_out)}
+        if cfg.use_bias:
+            p["bi"] = torch.zeros(stack + (f,), dtype=dtype, device=gen.device)
+            p["bo"] = torch.zeros(stack + (d,), dtype=dtype, device=gen.device)
+        return p
     return {"wg": normal(gen, stack + (d, f), dtype, std_in),
             "wu": normal(gen, stack + (d, f), dtype, std_in),
             "wd": normal(gen, stack + (f, d), dtype, std_out)}
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "wi" in p:                                       # plain MLP
+        h = gelu(dsp.linear(x, p["wi"], bias=p.get("bi")))
+        return dsp.linear(h, p["wo"], bias=p.get("bo"))
     act = _ACTS.get(cfg.act, F.silu)
     g = act(dsp.linear(x, p["wg"]))
     u = dsp.linear(x, p["wu"])
@@ -127,3 +143,13 @@ def logits(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     packed `unembed` runs the fp32 `palette` / `sparse` kernel instead."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
     return dsp.linear(x.float(), w)
+
+
+def sinusoidal_positions(length: int, dim: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings for the encoder frames: computed
+    in numpy float64 and cast to float32, as the reference computes them."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32))

@@ -25,9 +25,10 @@ def layer_signature(cfg: ModelConfig, idx: int) -> tuple[str, bool]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders so far; refuse anything else loudly."""
+    """The port serves dense GQA decoders and the encoder-decoder so far;
+    refuse anything else loudly."""
     unsupported = [name for name, on in (
-        ("non-dense family", cfg.family != "dense"),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "encdec")),
         ("block_pattern", bool(cfg.block_pattern)),
         ("MoE", cfg.n_experts > 0),
         ("MLA", cfg.use_mla),

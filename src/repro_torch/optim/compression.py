@@ -49,6 +49,9 @@ def compress_model_params(params: Any, form: WeightForm | str) -> Any:
     cannot pack into `form` (palette wants K even, sparse K % 16 == 0) stay
     dense and keep routing through `anemm`."""
     form = WeightForm(form)
+    if "encdec" in params:
+        raise NotImplementedError("packed weight forms of the encoder-decoder's "
+                                  "layouts are not ported yet")
     if form not in dsp.FORM_KERNELS:
         raise ValueError(f"{form} has no streaming kernel; "
                          f"have {sorted(f.value for f in dsp.FORM_KERNELS)}")

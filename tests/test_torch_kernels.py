@@ -151,9 +151,15 @@ def test_window_matches_pallas(name):
 
 
 def test_anemm_fused_lut_epilogue_is_not_ported():
+    """The fused epilogue names a table of `core.numerics`: a known name
+    runs (the LUT after the product), an unknown one is refused."""
+    from repro_torch.kernels.act_lut.ops import lut_apply_ref
+
     a = torch.ones(2, 4)
-    with pytest.raises(NotImplementedError):
-        anemm(a, torch.ones(4, 3), epilogue="gelu")
+    assert torch.equal(anemm(a, torch.ones(4, 3), epilogue="gelu"),
+                       lut_apply_ref(torch.full((2, 3), 4.0), "gelu"))
+    with pytest.raises(KeyError):
+        anemm(a, torch.ones(4, 3), epilogue="no_such_table")
 
 
 def test_decode_all_invalid_lane_is_finite():
