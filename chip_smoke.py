@@ -17,7 +17,9 @@ printing one JSON line for each:
                encoder's non-causal attention) and of a pooling pyramid, at
                the registry tolerance; `anemm`'s fused `epilogue=` against
                its plain version and bit for bit against anemm-then-act_lut;
-               the median
+               `paged_decode_attention` on every registry case and with a
+               window, bit for bit against `decode_attention(bk=bs)` on the
+               gathered pages; the median
                device time (CUDA-graph replay between CUDA events, L2
                flushed) of the kernel, its plain version and one PyTorch
                library call computing the same function, beside the bound
@@ -41,7 +43,25 @@ printing one JSON line for each:
                of the run's kernels must have launched its expected count;
   7. profile — one more round of each serve under torch.profiler: device
                time by kernel and the device's busy share;
-  8. spec    — the same model and requests (fp16 form) through the
+  8. prefix  — the same model (fp16 form) served twice by the serve CLI's
+               entry point on 8 lanes, 16 requests over two rounds, each
+               round one 256-token system prompt (drawn from the seed)
+               followed by unique tails (prompts 264..504, 32 tokens each):
+               once through the paged prefix pool (`--prefix-cache
+               --prefix-block-size 16 --prefix-blocks 64`) and once without.
+               The tokens must be equal; the pool must count 2 misses, 14
+               hits and 3,584 hit tokens, and the pooled run must make
+               exactly 12 fewer dispatches (a miss adds `pool_insert`, a hit
+               replaces prefill + `admit_slot` by one `prefix_admit`) with the
+               same decode steps; every route cuda, every kernel's launches as
+               the run's forwards imply, no page table held at the end, the
+               pool's audit clean. Then `paged_decode_attention` on every
+               layer's slice of the served arena, read in place (8 lanes on
+               the two resident chains, two tables cut short with unmapped
+               pages): bit for bit equal to `decode_attention(bk=16)` on the
+               gathered pages and within tolerance of its plain version,
+               timed as the other kernels are;
+  9. spec    — the same model and requests (fp16 form) through the
                speculative schedule (`--schedule spec --draft-depth 4`) three
                ways: `--draft self`, `--draft shrink`, and `--draft shrink
                --draft-branches 2`; then once more with two branches and an
@@ -57,7 +77,7 @@ printing one JSON line for each:
                must make one verify and (if it drafted) one draft dispatch,
                and every kernel must have launched exactly as often as the
                run's forwards and windows say;
-  9. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
+  10. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
                weights from a seed) served by the serve CLI's entry point
                through the continuous schedule: per-request log-mel frames
                (3000, 80) through the two-conv stem (conv2d with the GELU
@@ -80,6 +100,7 @@ directory, without the port beside it, it fails at the import.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -105,7 +126,8 @@ from repro_torch.kernels.act_lut.ops import lut_activation, table_operands  # no
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
 from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_ref)
+    decode_attention, decode_attention_ref, gather_pages, gathered_positions,
+    paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -139,6 +161,15 @@ ENCODER_LENS = "8,16,24,32,48,64,100,128"
 # (a ResNet stem's) and a 7x7 global average pool (its head's), bf16
 POOL_SHAPES = {"max_pool": ((8, 112, 112, 64), (3, 3), (2, 2), "SAME"),
                "avg_pool": ((8, 7, 7, 2048), (7, 7), (7, 7), "VALID")}
+
+# the prefix phase: per round one shared system prompt, then unique tails;
+# every prompt's bucket is 256 and the L-1 match cap still reaches it
+PREFIX_SYSTEM = 256
+PREFIX_LENS = (264, 280, 300, 320, 360, 400, 450, 504)
+PREFIX_ROUNDS = 2
+PREFIX_BLOCK = 16
+PREFIX_BLOCKS = 64
+PREFIX_NAMED = ("admit_slot", "reset_slot", "prefix_admit", "pool_insert")
 
 TIMING_REPS = 20
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
@@ -324,13 +355,38 @@ def library_call(name: str, i: dict):
             return lambda: F.avg_pool2d(x, i["window"], i["stride"], padding=pad,
                                         count_include_pad=True)
         return lambda: F.max_pool2d(x, i["window"], i["stride"], padding=pad)
-    q = i["q"][:, :, None]
+    q, cur = i["q"][:, :, None], i["current"]
+    if name == "paged_decode_attention":           # the gather, then SDPA
+        tables = i["block_tables"]
+
+        def paged():
+            k = gather_pages(i["k_arena"], tables).transpose(1, 2)
+            v = gather_pages(i["v_arena"], tables).transpose(1, 2)
+            pos = gathered_positions(i["pos_arena"], tables)
+            mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        return paged
     k = i["k_cache"].transpose(1, 2)
     v = i["v_cache"].transpose(1, 2)
-    pos, cur = i["positions"], i["current"]
+    pos = i["positions"]
     mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
+
+
+PAGED_NAMES = ("q", "k_arena", "v_arena", "pos_arena", "block_tables", "current")
+
+
+def decode_on_gathered_pages(i: dict, window=None) -> torch.Tensor:
+    """`decode_attention(bk=bs)` on the gathered pages of a paged bundle:
+    what `paged_decode_attention` must equal bit for bit (the reference's
+    contract)."""
+    tables = i["block_tables"]
+    return decode_attention(i["q"], gather_pages(i["k_arena"], tables),
+                            gather_pages(i["v_arena"], tables),
+                            gathered_positions(i["pos_arena"], tables), i["current"],
+                            window=window, bk=i["k_arena"].shape[1])
 
 
 def noncausal_flash(spec):
@@ -348,40 +404,49 @@ def noncausal_flash(spec):
         run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], causal=False))
 
 
+def check_case(spec, label, inputs, failures: list, timer=None) -> dict:
+    """One kernel call against its plain version on the same inputs; with a
+    timer, also the times of the kernel, its plain version and the library
+    call, and the bound from this run's inputs. Emits the record; a
+    disagreement is appended to `failures`."""
+    target = hal.H100
+    out = spec.run_kernel(inputs)
+    ref = spec.run_oracle(inputs)
+    torch.cuda.synchronize()
+    dtype = next(t.dtype for t in inputs.values()
+                 if isinstance(t, torch.Tensor) and t.is_floating_point())
+    tol = spec.tol(dtype)
+    err, ok = _compare(out, ref, tol)
+    rec = {"kernel": spec.name, "shape": label, "max_abs_err": err,
+           "tol": list(tol), "ok": ok}
+    if timer is not None:
+        ops, nbytes = spec.work(inputs)
+        t_ops = ops / target.peak_for(dtype_name(dtype))
+        t_bytes = nbytes / target.hbm_bandwidth
+        library = library_call(spec.name, inputs)
+        rec.update({
+            "ms": timer.device_ms(lambda: spec.run_kernel(inputs)),
+            "eager_ms": timer.eager_ms(lambda: spec.run_kernel(inputs)),
+            "plain_ms": timer.device_ms(lambda: spec.run_oracle(inputs)),
+            "library_ms": None if library is None else timer.device_ms(library),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes})
+    emit("kernel", **rec)
+    if not ok:
+        failures.append(f"{spec.name} {label}: max_abs_err {err} tol {tol}")
+    return rec
+
+
 def check_kernels(cfg, timer) -> dict:
     """Every registry case and every main-path shape: kernel vs plain on the
-    card. Returns the headline record of each kernel."""
+    card. Returns the headline record of each kernel but the paged decode,
+    whose headline the prefix phase measures on the served arena."""
     rng = np.random.default_rng(0)
-    target = hal.H100
     failures = []
 
     def check(spec, label, inputs, timed: bool):
-        out = spec.run_kernel(inputs)
-        ref = spec.run_oracle(inputs)
-        torch.cuda.synchronize()
-        dtype = next(t.dtype for t in inputs.values()
-                     if isinstance(t, torch.Tensor) and t.is_floating_point())
-        tol = spec.tol(dtype)
-        err, ok = _compare(out, ref, tol)
-        rec = {"kernel": spec.name, "shape": label, "max_abs_err": err,
-               "tol": list(tol), "ok": ok}
-        if timed:
-            ops, nbytes = spec.work(inputs)
-            t_ops = ops / target.peak_for(dtype_name(dtype))
-            t_bytes = nbytes / target.hbm_bandwidth
-            library = library_call(spec.name, inputs)
-            rec.update({
-                "ms": timer.device_ms(lambda: spec.run_kernel(inputs)),
-                "eager_ms": timer.eager_ms(lambda: spec.run_kernel(inputs)),
-                "plain_ms": timer.device_ms(lambda: spec.run_oracle(inputs)),
-                "library_ms": None if library is None else timer.device_ms(library),
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "ops": ops, "bytes": nbytes})
-        emit("kernel", **rec)
-        if not ok:
-            failures.append(f"{spec.name} {label}: max_abs_err {err} tol {tol}")
-        return rec
+        return check_case(spec, label, inputs, failures, timer if timed else None)
 
     for spec in registry.all_specs():
         for dtype in spec.dtypes:
@@ -434,6 +499,29 @@ def check_kernels(cfg, timer) -> dict:
             dec, run_kernel=lambda i: decode_attention(*(i[k] for k in names), window=24),
             run_oracle=lambda i: decode_attention_ref(*(i[k] for k in names), window=24))
         check(win, f"window=24 {dtype_name(dtype)}", i, False)
+
+    # the paged decode: bit for bit against decode_attention(bk=bs) on the
+    # gathered pages on every registry case, and with a window
+    pg = registry.get("paged_decode_attention")
+    for dtype in pg.dtypes:
+        for case in pg.cases:
+            i = pg.make_inputs(case, dtype, rng, "cuda")
+            win = dataclasses.replace(
+                pg, run_kernel=lambda i: paged_decode_attention(
+                    *(i[k] for k in PAGED_NAMES), window=5),
+                run_oracle=lambda i: paged_decode_attention_ref(
+                    *(i[k] for k in PAGED_NAMES), window=5))
+            check(win, f"window=5 {case.name} {dtype_name(dtype)}", i, False)
+            for window in (None, 5):
+                same = torch.equal(
+                    paged_decode_attention(*(i[k] for k in PAGED_NAMES), window=window),
+                    decode_on_gathered_pages(i, window))
+                emit("paged_bits", case=case.name, dtype=dtype_name(dtype), window=window,
+                     bit_identical=same)
+                if not same:
+                    failures.append(f"paged_decode_attention {case.name} "
+                                    f"{dtype_name(dtype)} window={window}: differs from "
+                                    "decode_attention(bk=bs) on the gathered pages")
 
     # verify/accept on rows with planted equal maxima and rows of all -inf,
     # at the spec phase's shapes
@@ -520,6 +608,8 @@ def main() -> int:
             else (FORM_KERNEL[form],)
         launches.update({k: run[k] for k in kernels_of_run})
         profile_serve(form, serve_argv(cfg, 1, form))
+    headline["paged_decode_attention"], launches["paged_decode_attention"] = \
+        serve_prefix(cfg, timer)
     for draft, branches in SPEC_RUNS:
         run = serve_spec(cfg, draft, branches, tokens["fp16"])
         if (draft, branches) == ("self", 1):
@@ -631,6 +721,7 @@ def serve_main_path(form: str) -> tuple[dict, np.ndarray]:
     dispatches = {k: {"n": len(w), "wall_s": sum(w), "median_ms": statistics.median(w) * 1e3}
                   for k, w in by_kind.items()}
     emit("serve", config=cfg.name, dtype=cfg.dtype, weight_form=form,
+         tokens_sha256=hashlib.sha256(np.ascontiguousarray(tokens).tobytes()).hexdigest(),
          n_layers=cfg.n_layers, lanes=n_lanes, prompt_lens=SERVE_LENS, gen=SERVE_GEN,
          rounds=SERVE_ROUNDS, tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
          build_s=out["build_s"], pack_s=out["pack_s"], weight_form_census=census,
@@ -642,6 +733,159 @@ def serve_main_path(form: str) -> tuple[dict, np.ndarray]:
          launches=launches,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches, tokens
+
+
+def prefix_rounds(cfg) -> list[list[np.ndarray]]:
+    """The prefix phase's requests: per round one system prompt of
+    PREFIX_SYSTEM tokens, drawn from the seed, each request's unique tail
+    after it."""
+    rng = np.random.default_rng(0)
+    rounds = []
+    for _ in range(PREFIX_ROUNDS):
+        system = rng.integers(0, cfg.vocab, size=(PREFIX_SYSTEM,))
+        rounds.append([np.concatenate([system, rng.integers(0, cfg.vocab,
+                                                           size=(n - PREFIX_SYSTEM,))])
+                       .astype(np.int32) for n in PREFIX_LENS])
+    return rounds
+
+
+def prefix_argv(cfg, pooled: bool) -> list[str]:
+    argv = ["--arch", cfg.name, "--schedule", "continuous", "--batch", str(len(PREFIX_LENS)),
+            "--gen", str(SERVE_GEN), "--seed", "0", "--device", "cuda", "--weight-form",
+            "fp16"]
+    if pooled:
+        argv += ["--prefix-cache", "--prefix-block-size", str(PREFIX_BLOCK),
+                 "--prefix-blocks", str(PREFIX_BLOCKS)]
+    return argv
+
+
+def serve_prefix(cfg, timer) -> tuple[dict, int]:
+    """Full tinyllama-1.1b (fp16 form) through the serve CLI's entry point
+    on the prefix phase's requests, with the paged pool and without; then
+    `paged_decode_attention` on every layer's slice of the pool's served
+    arena. Returns the paged kernel's headline record and its launches in
+    that check."""
+    rounds = prefix_rounds(cfg)
+    runs = {}
+    for pooled in (False, True):
+        tag = "pooled" if pooled else "pool-less"
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        out = serve.run(prefix_argv(cfg, pooled), prompts=rounds)
+        launches = native.launch_counts()
+        for r, toks in enumerate(out["round_tokens"]):
+            if toks.shape != (len(PREFIX_LENS), SERVE_GEN) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab:
+                raise AssertionError(f"prefix {tag} round {r} tokens: shape {toks.shape}, "
+                                     f"range [{toks.min()}, {toks.max()}]")
+        if {b for _, b in out["routes"]} != {"cuda"}:
+            raise AssertionError(f"prefix {tag} routes {out['routes']}: every route must "
+                                 "be cuda")
+        # the run ends on a decode step; every other program key is a prefill
+        recs = out["records"]
+        decode_key = recs[-1].key
+        kinds = [r.key if r.key in PREFIX_NAMED else
+                 "decode" if r.key == decode_key else "prefill" for r in recs]
+        counts = {k: kinds.count(k) for k in ("prefill", "decode") + PREFIX_NAMED}
+        want = {k: 0 for k in launches}
+        want.update({"anemm": (7 * cfg.n_layers + 1) * (counts["prefill"] + counts["decode"]),
+                     "flash": cfg.n_layers * counts["prefill"],
+                     "decode_attention": cfg.n_layers * counts["decode"]})
+        if launches != want:
+            raise AssertionError(f"prefix {tag} launches {launches}, expected {want}")
+        walls = {k: [r.wall_s for r, kind in zip(recs, kinds) if kind == k]
+                 for k in counts if counts[k]}
+        emit("prefix_serve", config=cfg.name, dtype=cfg.dtype, pooled=pooled,
+             lanes=len(PREFIX_LENS), system_prompt=PREFIX_SYSTEM, prompt_lens=PREFIX_LENS,
+             gen=SERVE_GEN, rounds=PREFIX_ROUNDS, block_size=PREFIX_BLOCK,
+             blocks=PREFIX_BLOCKS, tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+             n_dispatches=out["n_dispatches"], dispatch_counts=counts,
+             median_ms={k: statistics.median(w) * 1e3 for k, w in walls.items()},
+             wall_s_by_kind={k: sum(w) for k, w in walls.items()},
+             prefix_cache=out.get("prefix_cache"), cache_hits=out["cache_hits"],
+             cache_misses=out["cache_misses"], floor_measured_s=out["floor_measured_s"],
+             routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+             launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        # keep what the checks read, and drop the run's model before the next
+        runs[pooled] = {"round_tokens": out["round_tokens"], "counts": counts,
+                        "n_dispatches": out["n_dispatches"],
+                        "prefix_cache": out.get("prefix_cache"), "pool": out["engine"].pool}
+        del out
+
+    plain, pooled = runs[False], runs[True]
+    for r, (a, b) in enumerate(zip(plain["round_tokens"], pooled["round_tokens"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"prefix round {r}: {int((a != b).any(axis=1).sum())} "
+                                 "streams differ from the pool-less run's")
+    n_req = len(PREFIX_LENS) * PREFIX_ROUNDS
+    n_hits = n_req - PREFIX_ROUNDS
+    pc, counts = pooled["prefix_cache"], pooled["counts"]
+    if (pc["misses"], pc["hits"], pc["hit_tokens"]) != \
+            (PREFIX_ROUNDS, n_hits, n_hits * PREFIX_SYSTEM):
+        raise AssertionError(f"prefix pool stats {pc}: want {PREFIX_ROUNDS} misses, "
+                             f"{n_hits} hits, {n_hits * PREFIX_SYSTEM} hit tokens")
+    # a miss adds pool_insert to prefill + admit_slot; a hit is one
+    # prefix_admit in place of both
+    if plain["n_dispatches"] - pooled["n_dispatches"] != n_hits - PREFIX_ROUNDS or \
+            counts["decode"] != plain["counts"]["decode"] or \
+            (counts["prefill"], counts["pool_insert"], counts["prefix_admit"]) != \
+            (PREFIX_ROUNDS, PREFIX_ROUNDS, n_hits):
+        raise AssertionError(f"prefix dispatches: pooled {pooled['n_dispatches']} {counts}, "
+                             f"pool-less {plain['n_dispatches']} {plain['counts']}")
+    pool = pooled["pool"]
+    if pool.owners():
+        raise AssertionError(f"prefix pool: page tables still held by {pool.owners()}")
+    pool.audit()
+
+    # paged_decode_attention on the served arena, each layer's slice read in
+    # place: lanes 0-3 on round 0's chain, 4-7 on round 1's; lanes 3 and 7
+    # cut short by unmapped pages
+    chains = [pool.bids_of(pool.match(r[0][:PREFIX_SYSTEM])) for r in rounds]
+    n_pages = PREFIX_SYSTEM // PREFIX_BLOCK
+    if any(len(c) != n_pages for c in chains):
+        raise AssertionError(f"prefix pool chains {[len(c) for c in chains]}, want {n_pages}")
+    lanes = len(PREFIX_LENS)
+    tables = torch.tensor([chains[0]] * (lanes // 2) + [chains[1]] * (lanes // 2),
+                          dtype=torch.int32)
+    tables[lanes // 2 - 1, n_pages - 3:] = -1
+    tables[lanes - 1, n_pages - 7:] = -1
+    covered = (tables >= 0).sum(1).to(torch.int32) * PREFIX_BLOCK
+    tables, current = tables.cuda().contiguous(), (covered - 1).cuda().contiguous()
+    leaf = {name: next(a for loc, a in pool.arenas.items() if loc.rsplit("/", 1)[-1] == name)
+            for name in ("k", "v", "pos")}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((lanes, cfg.n_heads, cfg.d_head), generator=gen,
+                    device="cuda").to(leaf["k"].dtype)      # bf16, as the cache
+    spec = registry.get("paged_decode_attention")
+    layers, failures, errs, paged = [], [], [], 0
+    for layer in range(cfg.n_layers):
+        i = {"q": q, "k_arena": leaf["k"][:, layer], "v_arena": leaf["v"][:, layer],
+             "pos_arena": leaf["pos"][:, layer], "block_tables": tables, "current": current}
+        layers.append(i)
+        native.reset_launch_counts()
+        got = paged_decode_attention(*(i[k] for k in PAGED_NAMES))
+        torch.cuda.synchronize()
+        paged += native.launch_counts()["paged_decode_attention"]
+        err, ok = _compare(got, spec.run_oracle(i), spec.tol(q.dtype))
+        errs.append(err)
+        if not torch.equal(got, decode_on_gathered_pages(i)):
+            failures.append(f"layer {layer}: differs from decode_attention(bk="
+                            f"{PREFIX_BLOCK}) on the gathered pages")
+        if not ok:
+            failures.append(f"layer {layer}: max_abs_err {err} against its plain version")
+    emit("prefix_arena", layers=cfg.n_layers, lanes=lanes, pages=n_pages,
+         block_size=PREFIX_BLOCK, mapped_pages=(tables >= 0).sum(1).tolist(),
+         max_abs_err=max(errs), bit_identical=not any("differs" in f for f in failures),
+         launches=paged)
+    if failures or paged != cfg.n_layers:
+        raise AssertionError(f"paged decode on the served arena ({paged} launches): "
+                             + "; ".join(failures))
+    label = (f"served arena layer 0: B={lanes} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+             f"d={cfg.d_head} bs={PREFIX_BLOCK} nb={n_pages} {dtype_name(q.dtype)}")
+    rec = check_case(spec, "main " + label, layers[0], failures, timer)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec, paged
 
 
 def serve_argv(cfg, rounds: int, form: str, schedule: str = "continuous") -> list[str]:

@@ -1,8 +1,10 @@
-"""Model configurations: a copy of the reference's `ModelConfig` and `smoke`.
+"""Model configurations: a copy of the reference's `ModelConfig`,
+`ShapeConfig` and `smoke`.
 
-Copied from `src/repro/configs/base.py` (`ModelConfig` at :17, `smoke` at
-:161) with every field and default unchanged, so a configuration means the
-same model in both packages. The port keeps its own copy: it imports nothing
+Copied from `src/repro/configs/base.py` (`ModelConfig` at :17, `ShapeConfig`
+at :135, `smoke` at :161) with every field and default unchanged, so a
+configuration means the same model in both packages; `core.costmodel` prices
+a `ShapeConfig`. The port keeps its own copy: it imports nothing
 of the JAX package. `smoke(cfg)` gives the reduced same-family configuration
 the CPU tests instantiate.
 """
@@ -130,6 +132,14 @@ class ModelConfig:
         if self.n_mels:
             return (self.stem_stride * self.encoder_len, self.n_mels)
         return (self.encoder_len, self.d_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:

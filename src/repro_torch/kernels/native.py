@@ -54,9 +54,13 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "flash": ("flash_attention.cu", "flash_attention_launch",
               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
               + [_I64] * 9 + [_I, _I, _F, _I, _P]),
+    # two sources, one body (decode_attention.cuh): the monolithic and the
+    # paged cache, built side by side
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _P]),
+                          _F, _I, _I, _P]),
+    "paged_decode_attention": ("paged_decode_attention.cu", "paged_decode_attention_launch",
+                               [_P] * 7 + [_I] * 6 + [_I64, _I64, _I, _F, _I, _P]),
     "palette": ("palette_matmul.cu", "palette_matmul_launch",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sparse": ("sparse_matmul.cu", "sparse_matmul_launch",

@@ -8,10 +8,10 @@ Pallas kernel it replaces, and counts the work its inputs need (operations
 and bytes), from which `chip_smoke.py` computes each kernel's bound.
 
 Rows: `anemm` (reference :149), `palette` (:183), `sparse` (:221), `flash`
-(:287), `decode_attention` (:332), `act_lut` (:447), `specdec` (:500),
-`specdec_tree` (:561), `conv2d` (:626), `avg_pool` (:699) and `max_pool`
-(:721). The reference's `paged_decode_attention` row (:398) is still to be
-ported (ROADMAP queue B).
+(:287), `decode_attention` (:332), `paged_decode_attention` (:398),
+`act_lut` (:447), `specdec` (:500), `specdec_tree` (:561), `conv2d` (:626),
+`avg_pool` (:699) and `max_pool` (:721): every Pallas kernel of the
+reference.
 """
 
 from __future__ import annotations
@@ -321,6 +321,84 @@ def _register_decode() -> None:
 
 
 # ---------------------------------------------------------------------------
+# paged_decode_attention — decode against a block arena through a page table
+# ---------------------------------------------------------------------------
+
+
+def _paged_decode_inputs(case: ShapeCase, dtype, rng, device) -> dict:
+    """The reference's draws (:376), in its order: per-lane written lengths
+    shrinking from the full prefix (ragged tables, partial last pages; the
+    empty_lane case's last lane has none), pages on scattered arena rows
+    from `rng.permutation`, then q and the K/V arenas."""
+    b, h, kvh, n, bs, nb, d, length = case.dims
+    lens = [max(0, length - i * (length // max(b, 1))) for i in range(b)]
+    if case.name == "empty_lane":
+        lens[-1] = 0
+    pos_arena = np.full((n, bs), -1, np.int32)
+    tables = np.full((b, nb), -1, np.int32)
+    perm = rng.permutation(n)
+    nxt = 0
+    for i in range(b):
+        for j in range(-(-lens[i] // bs)):
+            row = int(perm[nxt])
+            nxt += 1
+            tables[i, j] = row
+            pp = j * bs + np.arange(bs)
+            pos_arena[row] = np.where(pp < lens[i], pp, -1)
+    return {"q": _normal(rng, (b, h, d), dtype, device),
+            "k_arena": _normal(rng, (n, bs, kvh, d), dtype, device),
+            "v_arena": _normal(rng, (n, bs, kvh, d), dtype, device),
+            "pos_arena": torch.from_numpy(pos_arena).to(device),
+            "block_tables": torch.from_numpy(tables).to(device),
+            "current": torch.from_numpy(
+                np.maximum(np.asarray(lens) - 1, 0).astype(np.int32)).to(device)}
+
+
+def _paged_decode_work(i: dict) -> tuple[float, float]:
+    """The reference's cost (:422: 4·H·d operations per slot, K and V rows
+    and the int32 table read once), over the slots this run's tables map to
+    a valid position rather than every page of every lane; q read and the
+    output written once, the positions of the mapped pages read once."""
+    from repro_torch.kernels.flash.decode_attention import gathered_positions
+
+    b, h, d = i["q"].shape
+    kvh = i["k_arena"].shape[2]
+    tables, cur = i["block_tables"], i["current"]
+    pos = gathered_positions(i["pos_arena"], tables)
+    n_valid = int(((pos >= 0) & (pos <= cur[:, None])).sum())
+    n_mapped = int((tables >= 0).sum())
+    row_bytes = kvh * d * i["k_arena"].element_size()
+    return (4.0 * h * d * n_valid,
+            2.0 * _nbytes(i["q"]) + _nbytes(tables, cur) + 2.0 * n_valid * row_bytes
+            + 4.0 * n_mapped * i["pos_arena"].shape[1])
+
+
+def _register_paged_decode() -> None:
+    from repro_torch.kernels.flash.decode_attention import (paged_decode_attention,
+                                                            paged_decode_attention_ref)
+
+    names = ("q", "k_arena", "v_arena", "pos_arena", "block_tables", "current")
+    register(KernelSpec(
+        name="paged_decode_attention",
+        dtypes=(torch.float32, torch.bfloat16),
+        cases=(
+            # dims = (B, H, KVH, N arena blocks, bs, nb pages/lane, d, length)
+            ShapeCase("gqa", (2, 8, 2, 16, 8, 6, 64, 41)),
+            ShapeCase("mha", (1, 4, 4, 8, 16, 4, 32, 64)),
+            ShapeCase("ragged_pages", (3, 4, 2, 24, 8, 5, 64, 27), edge=True),
+            ShapeCase("empty_lane", (2, 4, 1, 12, 8, 4, 16, 9), edge=True),
+        ),
+        make_inputs=_paged_decode_inputs,
+        run_kernel=lambda i: paged_decode_attention(*(i[k] for k in names)),
+        run_oracle=lambda i: paged_decode_attention_ref(*(i[k] for k in names)),
+        tol=_flash_tol,
+        work=_paged_decode_work,
+        source="src/repro_torch/csrc/paged_decode_attention.cu",
+        replaces="src/repro/kernels/flash/decode_attention.py:200",
+    ))
+
+
+# ---------------------------------------------------------------------------
 # specdec / specdec_tree — fused speculative-decoding verify/accept
 # ---------------------------------------------------------------------------
 
@@ -608,6 +686,7 @@ _register_palette()
 _register_sparse()
 _register_flash()
 _register_decode()
+_register_paged_decode()
 _register_act_lut()
 _register_specdec()
 _register_conv2d()

@@ -4,33 +4,42 @@ After `src/repro/launch/scheduler.py`: `Request` / `RequestResult` (:82,
 :100), prompt-length buckets (:109, :120), `merge_prefill_caches` (:136),
 lane admission and reset (:167-239), greedy `TokenSampler` (:249),
 `_SchedulerBase` (:315), `SequentialSchedule` (:454) and `ContinuousSchedule`
-(:497), with the encoder-decoder's per-request frames (`Request.frames`,
-`_prefill_batch` :382, the bucket refusal of `_check` :416). The
-speculative schedule (`launch/speculative.py`) builds on
-`ContinuousSchedule` and registers itself in `SCHEDULES` as "spec". Not
-ported yet: mesh placement, the prefix pool, chunked prefill, categorical
-sampling (it needs `jax.random`'s threefry in torch) and the SLO schedule.
+(:497) with its prefix tier (the paged pool of `launch/kv_pool.py`:
+construction :508-559, `_re_prefill_cost` :561, the bind :579-593,
+`_prefix_hit_admit` :596, `_pool_cold_insert` :630, the release of a
+finished lane's page table, `stats()["prefix_cache"]` :890), with the
+encoder-decoder's per-request frames (`Request.frames`, `_prefill_batch`
+:382, the bucket refusal of `_check` :416). The speculative schedule
+(`launch/speculative.py`) builds on `ContinuousSchedule` and registers
+itself in `SCHEDULES` as "spec". Not ported yet: mesh placement, chunked
+prefill, categorical sampling (it needs `jax.random`'s threefry in torch)
+and the SLO schedule (with its prefix tier).
 
 Every model dispatch and every lane write goes through `self.stream` under
 the reference's keys — program keys from the `ProgramCache`, and
-"admit_slot", "reset_slot", "merge_prefill" — so dispatch counts and
-program misses compare one for one with the reference. Lane writes update
-the resident decode cache in place: the reference's programs donate it.
+"admit_slot", "reset_slot", "merge_prefill", "prefix_admit", "pool_insert"
+— so dispatch counts and program misses compare one for one with the
+reference. Lane and arena writes update the resident decode cache and the
+pool's arenas in place: the reference's programs donate them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Iterable
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import costmodel
 from repro_torch.core.dispatch import ExecutionStream
+from repro_torch.launch.kv_pool import TIME_MERGE_LEAVES, PagedKVPool
 from repro_torch.tree import map_with_path
 
-# cache leaves with a time axis that prefill may fill only partly
-TIME_MERGE_LEAVES = frozenset({"k", "v", "pos"})
+# the prefix pool's knobs: slot admission only (sequential drops them)
+PREFIX_KNOBS = ("prefix_cache", "prefix_blocks", "prefix_block_size")
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +306,18 @@ class _SchedulerBase:
 
 class SequentialSchedule(_SchedulerBase):
     """The parity reference: one request at a time, full-length prefill and
-    a private batch-1 decode loop."""
+    a private batch-1 decode loop. The prefix pool rides slot admission, so
+    its knobs are dropped here with a warning, as the reference's
+    `make_scheduler` drops them (:1393)."""
 
     name = "sequential"
+
+    def __init__(self, model, params, cfg, *, max_len: int, **kw) -> None:
+        knobs = [k for k in PREFIX_KNOBS if kw.pop(k, None) not in (None, False)]
+        if knobs:
+            warnings.warn(f"SequentialSchedule: {knobs} do(es) not apply (the prefix "
+                          "pool rides slot admission); dropped", UserWarning, stacklevel=2)
+        super().__init__(model, params, cfg, max_len=max_len, **kw)
 
     def run(self, requests: list[Request]) -> list[RequestResult]:
         results = []
@@ -344,9 +362,11 @@ class ContinuousSchedule(_SchedulerBase):
     name = "continuous"
 
     def __init__(self, model, params, cfg, *, n_slots: int, max_len: int,
-                 prefix_cache: bool = False, prefill_chunk: int | None = None, **kw) -> None:
-        # the reference's knobs (:509-537): an encoder-decoder refuses them
-        # in the reference's words; anything else waits for their port
+                 prefix_cache: bool = False, prefix_blocks: int = 64,
+                 prefix_block_size: int = 8, prefill_chunk: int | None = None,
+                 **kw) -> None:
+        # the reference's knobs (:509-559): an encoder-decoder refuses them
+        # in the reference's words; chunked prefill waits for its port
         if prefill_chunk is not None:
             if cfg.family == "encdec":
                 raise ValueError(
@@ -354,23 +374,104 @@ class ContinuousSchedule(_SchedulerBase):
                     "cache is built by the monolithic prefill program, so a "
                     "decode-mode chunk has no frames to attend to")
             raise NotImplementedError("chunked prefill is not ported yet")
-        if prefix_cache:
-            if cfg.family == "encdec":
-                raise ValueError(
-                    "prefix cache cannot serve encdec: the cross-attention "
-                    "cache is built from per-request frames, so token-hash "
-                    "block sharing would alias state across requests")
-            raise NotImplementedError("the prefix pool is not ported yet")
+        if prefix_cache and cfg.family == "encdec":
+            raise ValueError(
+                "prefix cache cannot serve encdec: the cross-attention "
+                "cache is built from per-request frames, so token-hash "
+                "block sharing would alias state across requests")
         super().__init__(model, params, cfg, max_len=max_len, **kw)
         if n_slots < 1:
             raise ValueError(f"continuous schedule needs n_slots >= 1, got {n_slots}")
         self.n_slots = n_slots
         self.slots = [_Slot() for _ in range(n_slots)]
         self.caches = None        # allocated lazily on first run
+        self.pool: PagedKVPool | None = None
+        if prefix_cache:
+            self.pool = PagedKVPool(prefix_blocks, prefix_block_size,
+                                    evict_cost_fn=self._re_prefill_cost)
+
+    def _re_prefill_cost(self, n_tokens: int) -> float:
+        """Cost-model floor + work of re-prefilling an `n_tokens` resident
+        prefix at batch 1, on the model's target (`hal.H100` by default)
+        with the stream's measured floor: what evicting a block whose chain
+        ends `n_tokens` deep would cost to rebuild. The pool evicts the
+        cheapest refcount-0 candidate (`PagedKVPool._evict_victim`)."""
+        shape = ShapeConfig("re_prefill", max(1, n_tokens), 1, "prefill")
+        t = self.model.dispatcher.target
+        flops = costmodel.model_flops(self.cfg, shape) \
+            + costmodel.attention_flops(self.cfg, shape)
+        work = max(flops / t.peak_flops,
+                   costmodel.weight_bytes(self.cfg) / t.hbm_bandwidth)
+        return self.stream.floor_s + work
 
     def _ensure_caches(self) -> None:
         if self.caches is None:
             self.caches = self.model.init_cache(self.n_slots, self.max_len)
+        if self.pool is not None and self.pool.arenas is None:
+            self.pool.bind(self.caches, max_len=self.max_len)
+
+    # -- prefix-cache admission ---------------------------------------------
+    def _prefix_admit(self, dec_caches, arenas, bids, anchor, slot: int):
+        """The prefix-hit admission program: gather the chain's blocks into
+        a batch-1 prefill-shaped tree and write it into lane `slot`."""
+        pf = self.pool.assemble_prefix(dec_caches, arenas, bids, anchor)
+        return admit_into_slot(dec_caches, pf, slot)
+
+    def _prefix_hit_admit(self, req: Request, slot: _Slot, slot_idx: int,
+                          bucket: int) -> bool:
+        """Admit from resident blocks when the prompt's longest anchored
+        resident prefix reaches at least the bucket a cold admission would
+        prefill: ONE gather-and-write dispatch replaces the prefill and the
+        lane write. The match is capped at L-1, so at least one prompt token
+        is left to teacher-force the first decode step: positions M..L-1
+        catch up through decode exactly as a bucket-M cold admission would,
+        and the streams stay those of cold admissions."""
+        pool = self.pool
+        if pool is None or pool.arenas is None:
+            return False
+        L = req.prompt.size
+        keys = pool.anchored_match(req.prompt, limit=L - 1)
+        M = len(keys) * pool.block_size
+        if not keys or M < max(bucket, 1):
+            return False
+        bids = torch.as_tensor(pool.bids_of(keys), dtype=torch.long, device=self.device)
+        anchor = pool.anchor_of(keys[-1])
+        self.stream.encode_operation(self._prefix_admit,
+                                     (self.caches, pool.arenas, bids, anchor, slot_idx),
+                                     "prefix_admit", batch=1)
+        self.caches = self.stream.execute_sync()[0]
+        pool.acquire(req.rid, keys)
+        pool.stats["hits"] += 1
+        pool.stats["hit_tokens"] += M
+        slot.next_pos = M
+        slot.next_tok = int(req.prompt[M])
+        return True
+
+    def _pool_cold_insert(self, req: Request, bucket: int, pf_caches) -> None:
+        """Cold-path residency: reserve arena rows for the prefilled whole
+        blocks and write them with one more dispatch (floor-charged, the
+        cost of caching); the chain end anchors the non-paged leaves, so a
+        later admission resumes from exactly this boundary."""
+        pool = self.pool
+        pool.stats["misses"] += 1
+        if bucket < pool.block_size:
+            return
+        keys, new_bids, first_new = pool.reserve(req.prompt[:bucket])
+        if new_bids:
+            pool.validate_prefill(pf_caches, bucket)
+            bids = torch.as_tensor(new_bids, dtype=torch.long, device=self.device)
+            self.stream.encode_operation(pool.insert_blocks,
+                                         (pool.arenas, pf_caches, bids, first_new),
+                                         "pool_insert", batch=1)
+            pool.arenas = self.stream.execute_sync()[0]
+        if keys:
+            if len(keys) * pool.block_size == bucket:
+                pool.set_anchor(keys[-1], pool.anchor_leaves(pf_caches))
+            pool.acquire(req.rid, keys)
+
+    def _release_lane(self, req: Request) -> None:
+        if self.pool is not None:
+            self.pool.release(req.rid)
 
     # -- admission ----------------------------------------------------------
     def _admit(self, slot_idx: int, req: Request, step: int) -> None:
@@ -379,16 +480,22 @@ class ContinuousSchedule(_SchedulerBase):
         slot = self.slots[slot_idx]
         L = req.prompt.size
         bucket = bucket_for(L, self.buckets)
-        if bucket == 0:
+        if self._prefix_hit_admit(req, slot, slot_idx, bucket):
+            pass                  # admitted from resident blocks
+        elif bucket == 0:
             self.stream.encode_operation(reset_slot, (self.caches, slot_idx),
                                          "reset_slot", batch=1)
             self.caches = self.stream.execute_sync()[0]
+            if self.pool is not None:
+                self.pool.stats["misses"] += 1
             slot.next_pos, slot.next_tok = 0, int(req.prompt[0])
         else:
             batch = self._prefill_batch(req.prompt[None, :bucket], req.frames)
             prefill, pkey = self._prefill_program(batch)
             self.stream.encode_operation(prefill, (self.params, batch), pkey, batch=1)
             pf_caches, logits = self.stream.execute_sync()[0]
+            if self.pool is not None:
+                self._pool_cold_insert(req, bucket, pf_caches)
             self.stream.encode_operation(admit_into_slot,
                                          (self.caches, pf_caches, slot_idx),
                                          "admit_slot", batch=1)
@@ -410,6 +517,7 @@ class ContinuousSchedule(_SchedulerBase):
             req.rid, req.prompt.size,
             np.asarray(slot.generated[:req.max_new_tokens], np.int32),
             bucket=slot.bucket, admitted_step=slot.admitted_step, finished_step=step))
+        self._release_lane(req)
         slot.req = None
         slot.generated = []
 
@@ -472,6 +580,13 @@ class ContinuousSchedule(_SchedulerBase):
             step += 1
         results.sort(key=lambda r: r.rid)
         return results
+
+    def stats(self, n_requests: int) -> dict:
+        out = super().stats(n_requests)
+        if self.pool is not None:
+            out["prefix_cache"] = dict(self.pool.stats)
+            out["prefix_cache"]["free_blocks"] = self.pool.free_blocks()
+        return out
 
 
 SCHEDULES = {

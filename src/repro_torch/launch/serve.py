@@ -6,6 +6,8 @@
         --schedule spec --draft self --draft-depth 4 --batch 2 --gen 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
         --batch 8 --prompt-lens 8,16,24,32,48,64,100,128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --batch 2 --prompt-len 17 --gen 4 --requests 2 --prefix-cache
 
 After `src/repro/launch/serve.py:119-419`. The model is built on the chosen
 device with a `KernelDispatcher`: on `--device cuda` (the default) every
@@ -27,7 +29,17 @@ is the reference's, followed by the measured dispatch floor, the route
 census, each kernel's launch count, the packing time and the weight-form
 census. `--schedule spec` serves speculative draft -> verify windows
 (`launch.speculative`) on an `AsyncExecutionStream`, and its report adds the
-windows, proposals, acceptance and step counts.
+windows, proposals, acceptance and step counts. `--prefix-cache` routes the
+continuous schedule's admissions through the block-paged KV pool
+(`launch.kv_pool`, `--prefix-blocks` blocks of `--prefix-block-size` tokens):
+a request whose prompt prefix is resident admits with one gather dispatch
+instead of re-prefilling it, and the report adds the pool's hits, misses,
+skipped prefill tokens and evictions. The sequential schedule drops the pool
+knobs (with a warning), the spec schedule and an encoder-decoder refuse them.
+
+`run(argv, prompts=...)` serves given rounds of prompts (a list of rounds,
+each a list of int32 token arrays) in place of the seeded draws: the
+library entry point for traffic whose requests share prefixes.
 """
 
 from __future__ import annotations
@@ -51,7 +63,7 @@ from repro_torch.optim.compression import compress_model_params, weight_form_cen
 WEIGHT_FORMS = ("fp16", "int4_palette", "sparse")
 
 
-def run(argv=None) -> dict:
+def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="tinyllama-1.1b", choices=configs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
@@ -82,6 +94,16 @@ def run(argv=None) -> dict:
                          "verification, branching on the drafter's top-N)")
     ap.add_argument("--max-in-flight", type=int, default=8,
                     help="spec only: bounded in-flight window of the async stream")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="continuous schedule: route admissions through the block-paged "
+                         "KV pool; a request whose prompt prefix is resident (shared "
+                         "system prompt, repeated round) admits with one gather dispatch "
+                         "instead of re-prefilling the matched blocks")
+    ap.add_argument("--prefix-blocks", type=int, default=64,
+                    help="prefix cache only: arena capacity in blocks")
+    ap.add_argument("--prefix-block-size", type=int, default=8,
+                    help="prefix cache only: tokens per block (should divide the "
+                         "prefill buckets, or chains never anchor)")
     ap.add_argument("--sampling", default="greedy", choices=SAMPLING_MODES)
     ap.add_argument("--weight-form", default="fp16", choices=WEIGHT_FORMS,
                     help="stored weight form: fp16 = dense (anemm); int4_palette / "
@@ -114,14 +136,21 @@ def run(argv=None) -> dict:
         pack_s = time.perf_counter() - t0
     census = Counter(weight_form_census(params).values())
 
-    lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
-            else [args.prompt_len] * args.batch)
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32) for L in lens]
+    if prompts is None:
+        lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
+                else [args.prompt_len] * args.batch)
+        drawn = [rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32) for L in lens]
+        rounds = [drawn] * max(args.requests, 1)
+    else:
+        rounds = [[np.asarray(p, np.int32).reshape(-1) for p in r] for r in prompts]
+        if not rounds or len({len(r) for r in rounds}) != 1:
+            raise ValueError("prompts: want one or more rounds of equally many prompts")
+        lens = [p.size for p in rounds[0]]
     frames = [None] * len(lens)
     if cfg.family == "encdec":
         frames = [np.asarray(rng.normal(size=cfg.frame_shape), np.float32) for _ in lens]
-    max_len = max(lens) + args.gen
+    max_len = max(p.size for r in rounds for p in r) + args.gen
 
     program_cache = ProgramCache()
     kw = {"n_slots": args.batch} if args.schedule in ("continuous", "spec") else {}
@@ -132,29 +161,34 @@ def run(argv=None) -> dict:
                   draft_branches=args.draft_branches)
     else:
         stream = ExecutionStream(program_cache, device=device)
+    if args.prefix_cache:
+        kw.update(prefix_cache=True, prefix_blocks=args.prefix_blocks,
+                  prefix_block_size=args.prefix_block_size)
     engine = SCHEDULES[args.schedule](model, params, cfg, max_len=max_len,
                                       sampling=args.sampling, stream=stream, **kw)
 
-    results = []
+    round_results = []
     native.reset_launch_counts()
     t0 = time.perf_counter()
-    for r in range(max(args.requests, 1)):
-        reqs = [Request(rid=r * len(lens) + i, prompt=prompts[i], max_new_tokens=args.gen,
+    for r, round_prompts in enumerate(rounds):
+        reqs = [Request(rid=r * len(lens) + i, prompt=p, max_new_tokens=args.gen,
                         frames=frames[i])
-                for i in range(len(lens))]
-        results = engine.run(reqs)
+                for i, p in enumerate(round_prompts)]
+        round_results.append(engine.run(reqs))
     wall = time.perf_counter() - t0
     launches = native.launch_counts()
     if isinstance(stream, AsyncExecutionStream):
         stream.close()
+    results = round_results[-1]
 
-    n_requests = len(lens) * max(args.requests, 1)
+    n_requests = len(lens) * len(rounds)
     stats = engine.stats(n_requests)
     # eager: no compile phase, so the ex-compile wall is the wall
     serve_wall = max(wall, 1e-9)
     routes = dispatcher.census()
     out = {
         "tokens": np.stack([r.tokens for r in results]),
+        "round_tokens": [np.stack([r.tokens for r in rr]) for rr in round_results],
         "schedule": args.schedule,
         "sampling": args.sampling,
         "device": str(device),
@@ -181,6 +215,12 @@ def run(argv=None) -> dict:
                      f"{stats['windows_by_kind']}, acceptance "
                      f"{stats['acceptance_rate']:.2f}, "
                      f"{stats['tokens_per_window_dispatch']:.2f} tok/window-dispatch")
+    prefix_note = ""
+    if "prefix_cache" in stats:
+        pc = stats["prefix_cache"]
+        prefix_note = (f" | prefix cache: {pc['hits']} hits / {pc['misses']} misses, "
+                       f"{pc['hit_tokens']} prefill tokens skipped, "
+                       f"{pc['evictions']} evictions")
     print(f"{args.schedule} x {args.sampling}: {n_requests} requests "
           f"(lens {lens}) gen {args.gen}: {wall*1e3:.1f} ms "
           f"({serve_wall*1e3:.1f} ms ex-compile, {out['tok_per_s']:.1f} "
@@ -188,7 +228,7 @@ def run(argv=None) -> dict:
           f"dispatches, floor/request "
           f"{stats['per_request_dispatch_overhead_s']*1e6:.1f} us | "
           f"program cache h{program_cache.stats.hits}/"
-          f"m{program_cache.stats.misses}{spec_note}")
+          f"m{program_cache.stats.misses}{prefix_note}{spec_note}")
     route_text = ", ".join(f"{k}/{b}: {n}" for (k, b), n in sorted(routes.items()))
     print(f"device {device} | measured floor {stream.floor_s*1e6:.1f} us/dispatch | "
           f"routes {route_text} | kernel launches "
