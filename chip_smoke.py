@@ -9,17 +9,31 @@ printing one JSON line for each:
 
   1. device  — the card, its power limit, the torch and CUDA versions;
   2. build   — every kernel built from `src/repro_torch/csrc/` with nvcc for
-               sm_90a (one nvcc per source, all started together);
+               sm_90a (one nvcc per source, all started together), with each
+               kernel's registers and spills from ptxas;
   3. kernels — each kernel held against its plain PyTorch version on the
                card, on every registry case and at the main-path shapes of
                full tinyllama-1.1b and whisper-small (the stem's two convs
                with their fused GELU, the GELU table over a stem output, the
-               encoder's non-causal attention) and of a pooling pyramid, at
-               the registry tolerance; `anemm`'s fused `epilogue=` against
+               encoder's non-causal attention and a decode step's
+               one-query cross-attention, on contiguous tensors and on the
+               strided views the flash route passes) and of a pooling
+               pyramid, at the registry tolerance; flash non-causal, with a
+               window, GQA and at short queries (its split-KV path) at head
+               dims 16 to 256 in every dtype, and at the wide heads of the
+               archs still to port (d 128: 32/8 heads, d 256: 16/1, a
+               causal 512-token prefill and a 4,096-token one under a
+               2,048-token window); flash's 1,500-key shapes and a merge of
+               four key splits with peaked scores (q drawn at 4x), held
+               also to 4 roundings of the largest output; the short-query
+               plan timed beside other split lengths and one split, on 1
+               and 8 lanes at d 64, 128 and 256; flash bit-identical across
+               reruns and for 8 lanes against the first 8 of 16; decode and
+               the paged decode at d 128 and 256; `anemm`'s fused `epilogue=` against
                its plain version and bit for bit against anemm-then-act_lut;
-               `paged_decode_attention` on every registry case and with a
-               window, bit for bit against `decode_attention(bk=bs)` on the
-               gathered pages; the median
+               `paged_decode_attention` on every registry case, at the wide
+               heads and with a window, bit for bit against
+               `decode_attention(bk=bs)` on the gathered pages; the median
                device time (CUDA-graph replay between CUDA events, L2
                flushed) of the kernel, its plain version and one PyTorch
                library call computing the same function, beside the bound
@@ -102,6 +116,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -125,9 +140,11 @@ from repro_torch.kernels import native, registry  # noqa: E402
 from repro_torch.kernels.act_lut.ops import lut_activation, table_operands  # noqa: E402
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
+from repro_torch.kernels.flash import flash_attention as fa  # noqa: E402  (the module)
 from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref, gather_pages, gathered_positions,
     paged_decode_attention, paged_decode_attention_ref)
+from repro_torch.kernels.flash.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -157,6 +174,19 @@ SPEC_RUNS = (("self", 1), ("shrink", 1), ("shrink", 2), ("early_exit", 2))
 # prefill bucket (the cross K/V is built at prefill), 32 tokens each
 ENCODER_ARCH = "whisper-small"
 ENCODER_LENS = "8,16,24,32,48,64,100,128"
+# flash cases the registry rows leave off, at every head dim the kernel
+# takes: (label, (B, H, KVH, Sq, Skv), masks); Sq <= 16 runs the bf16 /
+# fp16 short-query (split-KV) path
+FLASH_EXTRA = (("gqa", (2, 4, 2, 128, 128), {}),
+               ("non-causal", (2, 4, 2, 128, 128), {"causal": False}),
+               ("window=24", (2, 4, 2, 128, 128), {"window": 24}),
+               ("one query", (2, 4, 2, 1, 77), {"causal": False}),
+               ("one query causal", (2, 4, 1, 1, 77), {}),
+               ("16 queries", (2, 4, 2, 16, 1500), {"causal": False}),
+               ("16 queries window=7", (1, 4, 4, 16, 300), {"window": 7}))
+# the wide heads of the archs still to port: head dim -> (query heads, kv
+# heads); granite-style 32/8 at 128, recurrentgemma's 16/1 at 256
+WIDE_HEADS = {128: (32, 8), 256: (16, 1)}
 # the pooling pyramid of the kernels phase: a 3x3 stride-2 SAME max pool
 # (a ResNet stem's) and a 7x7 global average pool (its head's), bf16
 POOL_SHAPES = {"max_pool": ((8, 112, 112, 64), (3, 3), (2, 2), "SAME"),
@@ -171,12 +201,45 @@ PREFIX_BLOCK = 16
 PREFIX_BLOCKS = 64
 PREFIX_NAMED = ("admit_slot", "reset_slot", "prefix_admit", "pool_insert")
 
+# a peaked flash check (q drawn at 4x, outputs O(1)) is also held to this many
+# roundings of its dtype at the largest output, beside the registry tolerance
+PEAK_ROUNDINGS = 4
+# the short-query plans timed beside the one flash_plan takes: key splits of
+# this many keys (and one split, without the combine pass)
+SPLIT_LENS = (128, 256, 512)
+
 TIMING_REPS = 20
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel of a `-Xptxas=-v` build log: its name (demangled with the
+    toolkit's cu++filt where it is found), registers and spill bytes."""
+    entries = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entries.append({"kernel": m.group(1)})
+        elif entries:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                entries[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                entries[-1]["registers"] = int(m.group(1))
+    filt = Path(native.nvcc_path()).with_name("cu++filt")
+    if entries and filt.exists():
+        names = subprocess.run([str(filt)], input="\n".join(e["kernel"] for e in entries),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, name in zip(entries, names):
+                name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\(int\)", "", name)
+                e["kernel"] = name[:name.rfind(">(") + 1] if ">(" in name else name.split("(")[0]
+    return entries
 
 
 def nvidia_smi_line() -> str:
@@ -335,8 +398,17 @@ def library_call(name: str, i: dict):
         w = PACKED[name].unpack(*PACKED[name].args(i)).to(i["a"].dtype)
         return lambda: torch.matmul(i["a"], w)
     if name == "flash":
-        return lambda: F.scaled_dot_product_attention(
-            i["q"], i["k"], i["v"], is_causal=i.get("causal", True), enable_gqa=True)
+        if i.get("window") is None:
+            return lambda: F.scaled_dot_product_attention(
+                i["q"], i["k"], i["v"], is_causal=i.get("causal", True), enable_gqa=True)
+        sq, skv = i["q"].shape[2], i["k"].shape[2]
+        qpos = torch.arange(sq, device="cuda")[:, None]
+        kpos = torch.arange(skv, device="cuda")[None]
+        allow = (qpos - kpos) < i["window"]
+        if i.get("causal", True):
+            allow &= kpos <= qpos
+        return lambda: F.scaled_dot_product_attention(i["q"], i["k"], i["v"], attn_mask=allow,
+                                                      enable_gqa=True)
     if name in ("specdec", "specdec_tree"):       # the picks alone
         return lambda: torch.argmax(i["scores"], dim=-1)
     if name == "act_lut":                          # no PyTorch call evaluates a table
@@ -389,25 +461,40 @@ def decode_on_gathered_pages(i: dict, window=None) -> torch.Tensor:
                             window=window, bk=i["k_arena"].shape[1])
 
 
-def noncausal_flash(spec):
-    """The flash row without the causal mask (the encoder's and the
-    cross-attention's): every (query, key) pair is work."""
+def flash_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the causal and window masks allow."""
+    qi = np.arange(sq)
+    lo = np.maximum(0, qi - window + 1) if window else np.zeros_like(qi)
+    hi = np.minimum(skv, qi + 1) if causal else np.full_like(qi, skv)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def masked_flash(spec):
+    """The flash row with the masks its inputs name (`causal`, default
+    True, and `window`, default None): the encoder's and the
+    cross-attention's non-causal calls, the sliding window. The work counts
+    the pairs the masks allow."""
+    def masks(i):
+        return {"causal": i.get("causal", True), "window": i.get("window")}
+
     def work(i):
         b, h, sq, d = i["q"].shape
         n_bytes = 2 * i["q"].numel() * i["q"].element_size() + sum(
             i[k].numel() * i[k].element_size() for k in ("k", "v"))
-        return 4.0 * b * h * d * sq * i["k"].shape[2], float(n_bytes)
+        pairs = flash_pairs(sq, i["k"].shape[2], **masks(i))
+        return 4.0 * b * h * d * pairs, float(n_bytes)
 
     return dataclasses.replace(
         spec, work=work,
-        run_kernel=lambda i: flash_attention(i["q"], i["k"], i["v"], causal=False),
-        run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], causal=False))
+        run_kernel=lambda i: flash_attention(i["q"], i["k"], i["v"], **masks(i)),
+        run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], **masks(i)))
 
 
-def check_case(spec, label, inputs, failures: list, timer=None) -> dict:
+def check_case(spec, label, inputs, failures: list, timer=None, peaked=False) -> dict:
     """One kernel call against its plain version on the same inputs; with a
     timer, also the times of the kernel, its plain version and the library
-    call, and the bound from this run's inputs. Emits the record; a
+    call, and the bound from this run's inputs; `peaked`, also within
+    PEAK_ROUNDINGS roundings of the largest |ref|. Emits the record; a
     disagreement is appended to `failures`."""
     target = hal.H100
     out = spec.run_kernel(inputs)
@@ -419,6 +506,12 @@ def check_case(spec, label, inputs, failures: list, timer=None) -> dict:
     err, ok = _compare(out, ref, tol)
     rec = {"kernel": spec.name, "shape": label, "max_abs_err": err,
            "tol": list(tol), "ok": ok}
+    if peaked:
+        r = ref.float()
+        limit = PEAK_ROUNDINGS * torch.finfo(dtype).eps / 2 * float(
+            r[torch.isfinite(r)].abs().max())
+        rec.update({"peak_limit": limit, "ok": ok and err <= limit})
+        ok = rec["ok"]
     if timer is not None:
         ops, nbytes = spec.work(inputs)
         t_ops = ops / target.peak_for(dtype_name(dtype))
@@ -434,8 +527,111 @@ def check_case(spec, label, inputs, failures: list, timer=None) -> dict:
             "ops": ops, "bytes": nbytes})
     emit("kernel", **rec)
     if not ok:
-        failures.append(f"{spec.name} {label}: max_abs_err {err} tol {tol}")
+        failures.append(f"{spec.name} {label}: max_abs_err {err} tol {tol}"
+                        + (f" peak limit {rec['peak_limit']}" if peaked else ""))
     return rec
+
+
+def check_paged_bits(i: dict, label: str, dtype, failures: list) -> None:
+    """paged_decode_attention on the bundle `i` bit for bit against
+    decode_attention(bk=bs) on the gathered pages, without and with a
+    window."""
+    for window in (None, 5):
+        same = torch.equal(paged_decode_attention(*(i[k] for k in PAGED_NAMES), window=window),
+                           decode_on_gathered_pages(i, window))
+        emit("paged_bits", case=label, dtype=dtype_name(dtype), window=window,
+             bit_identical=same)
+        if not same:
+            failures.append(f"paged_decode_attention {label} {dtype_name(dtype)} "
+                            f"window={window}: differs from decode_attention(bk=bs) on the "
+                            "gathered pages")
+
+
+def wide_head_inputs(rng) -> list[tuple[str, str, dict]]:
+    """(kernel, shape label, inputs) at the head dims of the archs still to
+    port: flash over a 512-token causal prefill (and at d 256 a 4,096-token
+    prefill under recurrentgemma's 2,048-token window), decode on 8 lanes
+    of the serve phase's cache lengths, the paged decode on 8 lanes of 16
+    pages of 16 slots."""
+    dev, bf16 = "cuda", torch.bfloat16
+    fl, dec, pg = (registry.get(n) for n in ("flash", "decode_attention",
+                                             "paged_decode_attention"))
+    B, S = 8, SERVE_MAX_LEN
+    lens = torch.tensor([int(x) for x in SERVE_LENS.split(",")], dtype=torch.int32,
+                        device=dev) + SERVE_GEN // 2
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    cases = []
+    for d, (h, kvh) in WIDE_HEADS.items():
+        shapes = [(512, None)] + ([(4096, 2048)] if d == 256 else [])
+        for L, window in shapes:
+            i = fl.make_inputs(registry.ShapeCase("wide", (1, h, kvh, L, L, d)), bf16, rng, dev)
+            label = f"causal L={L}" + (f" window={window}" if window else "")
+            cases.append(("flash", f"{label} H={h} KV={kvh} d={d} bf16",
+                          {**i, "window": window}))
+        i = dec.make_inputs(registry.ShapeCase("wide", (B, h, kvh, S, d, S)), bf16, rng, dev)
+        i["positions"] = torch.where(pos < lens[:, None], pos, -1).contiguous()
+        i["current"] = (lens - 1).contiguous()
+        cases.append(("decode_attention", f"B={B} S={S} H={h} KV={kvh} d={d} bf16", i))
+        i = pg.make_inputs(registry.ShapeCase("wide", (B, h, kvh, 160, 16, 16, d, 256)), bf16,
+                           rng, dev)
+        cases.append(("paged_decode_attention",
+                      f"B={B} H={h} KV={kvh} d={d} bs=16 nb=16 bf16", i))
+    return cases
+
+
+def check_flash_bits(rng, failures: list) -> None:
+    """flash's bits do not depend on the run: the same call twice gives the
+    same bits (the tile path at a 512-token prefill, the split path at one
+    query against 1,500 keys), and one query per lane against 1,500 keys on
+    8 lanes equals the first 8 of the same call on 16 lanes."""
+    w = configs.get_config(ENCODER_ARCH)
+    h, d, n = w.n_heads, w.d_head, w.encoder_len
+
+    def normal(shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(device="cuda", dtype=torch.bfloat16)
+
+    q1, k1, v1 = normal((16, h, 1, d)), normal((16, h, n, d)), normal((16, h, n, d))
+    qt, kt, vt = (normal((1, 32, 512, 64)) for _ in range(3))
+    checks = {
+        "tile rerun": (flash_attention(qt, kt, vt), flash_attention(qt, kt, vt)),
+        "split rerun": (flash_attention(q1, k1, v1, causal=False),
+                        flash_attention(q1, k1, v1, causal=False)),
+        "split 8 of 16 lanes": (flash_attention(q1[:8], k1[:8], v1[:8], causal=False),
+                                flash_attention(q1, k1, v1, causal=False)[:8]),
+    }
+    for label, (a, b) in checks.items():
+        same = torch.equal(a, b)
+        emit("flash_bits", check=label, bit_identical=same)
+        if not same:
+            failures.append(f"flash {label}: not bit-identical "
+                            f"(max diff {float((a.float() - b.float()).abs().max())})")
+
+
+def time_flash_plans(rng, timer) -> None:
+    """The short-query plan beside the plans it did not take: one query per
+    lane against whisper-small's 1,500 keys (its 12 heads), on 1 and 8
+    lanes, at d 64, 128 and 256, with key splits of SPLIT_LENS keys and with
+    one split (no combine pass). Timed only, through the wrapper with
+    `flash_plan` swapped for the plan under test."""
+    w = configs.get_config(ENCODER_ARCH)
+    h, n = w.n_heads, w.encoder_len
+    one = -(-n // fa.SPLIT_STAGE) * fa.SPLIT_STAGE
+    chosen = fa.flash_plan
+    try:
+        for d in (64, 128, 256):
+            for b in (1, 8):
+                q, k, v = (torch.from_numpy(rng.normal(size=(b, h, s, d))).to(
+                    device="cuda", dtype=torch.bfloat16) for s in (1, n, n))
+                ms = {}
+                for split_len in SPLIT_LENS + (one,):
+                    plan = fa.FlashPlan("short", -(-n // split_len), split_len)
+                    fa.flash_plan = lambda *_, plan=plan: plan
+                    ms[split_len if split_len != one else "one split"] = timer.device_ms(
+                        lambda: flash_attention(q, k, v, causal=False))
+                emit("flash_plans", lanes=b, heads=h, sq=1, skv=n, d=d,
+                     plan=chosen(1, n)._asdict(), ms_by_split_len=ms)
+    finally:
+        fa.flash_plan = chosen
 
 
 def check_kernels(cfg, timer) -> dict:
@@ -445,8 +641,8 @@ def check_kernels(cfg, timer) -> dict:
     rng = np.random.default_rng(0)
     failures = []
 
-    def check(spec, label, inputs, timed: bool):
-        return check_case(spec, label, inputs, failures, timer if timed else None)
+    def check(spec, label, inputs, timed: bool, peaked=False):
+        return check_case(spec, label, inputs, failures, timer if timed else None, peaked)
 
     for spec in registry.all_specs():
         for dtype in spec.dtypes:
@@ -479,26 +675,48 @@ def check_kernels(cfg, timer) -> dict:
             if not torch.equal(fused, lut_activation("gelu")(anemm(i["a"], i["b"]))):
                 failures.append(f"anemm epilogue=gelu {case.name} {dtype_name(dtype)}: "
                                 "fused differs from anemm-then-act_lut")
-    # the encoder's non-causal attention, which the registry cases leave off
-    fl = registry.get("flash")
-    nc = noncausal_flash(fl)
-    for dtype in fl.dtypes:
-        i = {**fl.make_inputs(fl.cases[0], dtype, rng, "cuda"), "causal": False}
-        check(nc, f"non-causal {dtype_name(dtype)}", i, False)
-    # the sliding-window mask, which the registry cases leave off
+    # flash beyond the registry's causal cases, at every head dim in every
+    # dtype: non-causal (the encoder's), the sliding window, GQA, and the
+    # short queries of the split-KV path (a decode step's cross-attention)
     fl, dec = registry.get("flash"), registry.get("decode_attention")
+    mf = masked_flash(fl)
+    for dtype in fl.dtypes:
+        for d in FLASH_HEAD_DIMS:
+            for label, dims, masks in FLASH_EXTRA:
+                i = {**fl.make_inputs(registry.ShapeCase(label, dims + (d,)), dtype, rng,
+                                      "cuda"), **masks}
+                check(mf, f"{label} {dims} d={d} {dtype_name(dtype)}", i, False)
+    # several non-empty key splits merged (4 queries against 1,000 keys: three
+    # splits of 256 and a short one) under peaked scores, q drawn at 4x, so
+    # the outputs are O(1) and a mis-weighted split shows
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in FLASH_HEAD_DIMS:
+            dims = (2, 4, 2, 4, 1000)
+            i = fl.make_inputs(registry.ShapeCase("splits", dims + (d,)), dtype, rng, "cuda")
+            i["q"] *= 4
+            check(mf, f"peaked splits {dims} d={d} {dtype_name(dtype)}",
+                  {**i, "causal": False}, False, peaked=True)
+    # the sliding window of decode, which the registry cases leave off
+    names = ("q", "k_cache", "v_cache", "positions", "current")
     for dtype in dec.dtypes:
-        i = fl.make_inputs(fl.cases[0], dtype, rng, "cuda")
-        win = dataclasses.replace(
-            fl, run_kernel=lambda i: flash_attention(i["q"], i["k"], i["v"], window=24),
-            run_oracle=lambda i: flash_attention_ref(i["q"], i["k"], i["v"], window=24))
-        check(win, f"window=24 {dtype_name(dtype)}", i, False)
         i = dec.make_inputs(dec.cases[0], dtype, rng, "cuda")
-        names = ("q", "k_cache", "v_cache", "positions", "current")
         win = dataclasses.replace(
             dec, run_kernel=lambda i: decode_attention(*(i[k] for k in names), window=24),
             run_oracle=lambda i: decode_attention_ref(*(i[k] for k in names), window=24))
         check(win, f"window=24 {dtype_name(dtype)}", i, False)
+    # decode and the paged decode at the wide heads (d 128: 32/8 heads, d
+    # 256: 16/1), with and without a window; the paged form bit for bit
+    # against decode_attention(bk=bs) on the gathered pages
+    pg = registry.get("paged_decode_attention")
+    for d, (h, kvh) in WIDE_HEADS.items():
+        for dtype in dec.dtypes:
+            i = dec.make_inputs(registry.ShapeCase("wide", (3, h, kvh, 200, d, 150)), dtype,
+                                rng, "cuda")
+            check(dec, f"wide H={h} KV={kvh} d={d} {dtype_name(dtype)}", i, False)
+            i = pg.make_inputs(registry.ShapeCase("wide", (3, h, kvh, 40, 16, 12, d, 150)),
+                               dtype, rng, "cuda")
+            check(pg, f"wide H={h} KV={kvh} d={d} {dtype_name(dtype)}", i, False)
+            check_paged_bits(i, f"wide d={d}", dtype, failures)
 
     # the paged decode: bit for bit against decode_attention(bk=bs) on the
     # gathered pages on every registry case, and with a window
@@ -512,16 +730,7 @@ def check_kernels(cfg, timer) -> dict:
                 run_oracle=lambda i: paged_decode_attention_ref(
                     *(i[k] for k in PAGED_NAMES), window=5))
             check(win, f"window=5 {case.name} {dtype_name(dtype)}", i, False)
-            for window in (None, 5):
-                same = torch.equal(
-                    paged_decode_attention(*(i[k] for k in PAGED_NAMES), window=window),
-                    decode_on_gathered_pages(i, window))
-                emit("paged_bits", case=case.name, dtype=dtype_name(dtype), window=window,
-                     bit_identical=same)
-                if not same:
-                    failures.append(f"paged_decode_attention {case.name} "
-                                    f"{dtype_name(dtype)} window={window}: differs from "
-                                    "decode_attention(bk=bs) on the gathered pages")
+            check_paged_bits(i, case.name, dtype, failures)
 
     # verify/accept on rows with planted equal maxima and rows of all -inf,
     # at the spec phase's shapes
@@ -547,15 +756,28 @@ def check_kernels(cfg, timer) -> dict:
         if label.startswith("gate_up M=8"):
             headline[name] = rec                  # decode-time projection
     # whisper-small's encoder attention (non-causal, L = 1500) and a decode
-    # step's cross-attention (8 lanes, one query against 1500 keys): timed,
-    # not headlines
+    # step's cross-attention (8 lanes, one query against 1500 keys), each on
+    # contiguous (B, H, S, d) tensors and on the strided (B, S, H, d) ->
+    # (B, H, S, d) views the flash route passes, q drawn at 4x (peaked
+    # scores, outputs O(1)); then the wide heads: timed, not headlines
     w = configs.get_config(ENCODER_ARCH)
     h_w, d_h, enc_len = w.n_heads, w.d_head, w.encoder_len
     for b, sq in ((1, enc_len), (8, 1)):
-        i = {k: torch.from_numpy(rng.normal(size=(b, h_w, sq if k == "q" else enc_len, d_h)))
-             .to(device="cuda", dtype=torch.bfloat16) for k in ("q", "k", "v")}
-        check(nc, f"main non-causal B={b} Sq={sq} Skv={enc_len} H={h_w} d={d_h} bf16",
-              {**i, "causal": False}, True)
+        for views in (False, True):
+            i = {}
+            for k in ("q", "k", "v"):
+                s_k = sq if k == "q" else enc_len
+                x = torch.from_numpy(rng.normal(size=(b, s_k, h_w, d_h) if views else
+                                                (b, h_w, s_k, d_h)))
+                x = (4 * x if k == "q" else x).to(device="cuda", dtype=torch.bfloat16)
+                i[k] = x.transpose(1, 2) if views else x
+            check(mf, f"main non-causal B={b} Sq={sq} Skv={enc_len} H={h_w} d={d_h} bf16"
+                      + (" route views" if views else ""), {**i, "causal": False}, True,
+                  peaked=True)
+    time_flash_plans(rng, timer)
+    for name, label, inputs in wide_head_inputs(rng):
+        check(mf if name == "flash" else registry.get(name), "main " + label, inputs, True)
+    check_flash_bits(rng, failures)
     # the fp32 head widens the bf16 unembed on every call (reference
     # layers.py:158-161): the copy's own device time
     unembed = torch.empty((cfg.d_model, cfg.padded_vocab), dtype=torch.bfloat16,
@@ -590,9 +812,8 @@ def main() -> int:
          bound_target=hal.H100.name, bound_sku_matches=kind == hal.H100.sku)
 
     built = native.build()
-    ptxas = {n: [ln.strip() for ln in txt.splitlines() if "registers" in ln or "spill" in ln]
-             for n, txt in built["log"].items()}
-    emit("build", seconds=built["seconds"], built=built["built"], ptxas=ptxas)
+    emit("build", seconds=built["seconds"], built=built["built"],
+         ptxas={n: ptxas_report(txt) for n, txt in built["log"].items()})
 
     cfg = configs.get_config("tinyllama-1.1b")
     timer = Timer()
@@ -1054,7 +1275,7 @@ def profile_serve(label: str, argv: list[str]) -> None:
     # the served round starts at the first of the port's kernels (before it:
     # weight init and the floor measurement)
     ours = [s for s, _, n in kernels
-            if n.startswith(("repro::tile::matmul", "flash_fwd", "decode_fwd"))]
+            if n.startswith(("repro::tile::matmul", "flash_", "decode_fwd"))]
     first = min(ours) if ours else 0.0
     spans, by_name = [], {}
     for start, end, name in kernels:

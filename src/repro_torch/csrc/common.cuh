@@ -50,6 +50,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device:
+// above 48 KB a kernel must ask first (cudaFuncSetAttribute). Each kernel
+// instance passes its own `done` flags, so the attribute is set once per
+// instance and device, before the instance's first launch there.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_dynamic_smem(Kernel* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  done[dev] = true;
+  return cudaSuccess;
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int err) {

@@ -9,7 +9,8 @@
 
 // q (B, H, D), k/v cache (B, S, KV, D), positions (B, S) int32, current (B,)
 // int32, out (B, H, D): all contiguous. window <= 0: none. H / KV <= 32.
-// bk: the chunk size, one of 8, 16, 32, 64.
+// D: one of 16, 32, 64, 128, 256.
+// bk: the chunk size, one of 8, 16, 64.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* positions, const void* current, void* out,
                                        int B, int H, int KV, int S, int D, int window,

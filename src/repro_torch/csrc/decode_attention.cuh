@@ -35,6 +35,12 @@
 // vectors and converts them to fp32 once per block; with only B * KV blocks
 // (32 for tinyllama at 8 lanes) it cannot fill the card, and a split over the
 // cache length with a second combine pass is later work.
+//
+// Head dims 16, 32, 64, 128 and 256. The fp32 arrays live in dynamic shared
+// memory sized per (D, BK) (`smem_bytes`): at d 128 they take 83 KB and at
+// d 256 165 KB, past the 48 KB of a static allocation, so each instance asks
+// for its size once per device before its first launch. The arithmetic and
+// its order do not depend on where the arrays live: d <= 64 keeps its bits.
 #pragma once
 
 #include "common.cuh"
@@ -81,20 +87,22 @@ struct PagedRows {
   }
 };
 
+// The body, on the block's shared arrays. They are carved from one dynamic
+// allocation (decode_fwd), and each comes in as its own __restrict__
+// pointer, so the compiler still knows that no two of them overlap (writes
+// to Ps do not force reloads of Qs, Ks or Vs).
 template <typename T, int D, int BK, typename Rows>
-__global__ void __launch_bounds__(DA_THREADS)
-    decode_fwd(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-               const Rows rows, const int* __restrict__ cur, T* __restrict__ out, int H,
-               int KV, int window, float scale) {
-  constexpr int DP = D + 1;
+__device__ __forceinline__ void decode_body(
+    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+    const Rows& rows, const int* __restrict__ cur, T* __restrict__ out, int H, int KV,
+    int window, float scale, float (*__restrict__ Qs)[D], float (*__restrict__ Ks)[D + 1],
+    float (*__restrict__ Vs)[D + 1], float (*__restrict__ Ps)[BK],
+    int* __restrict__ St /* 1 valid, 0 masked (-1e30), -1 past the cache */) {
   constexpr int DL = (D + 31) / 32;
   constexpr int KPL = (BK + 31) / 32;          // slots per lane
-  __shared__ float Qs[DA_GMAX][D];
-  __shared__ float Ks[BK][DP];
-  __shared__ float Vs[BK][DP];
-  __shared__ int St[BK];  // 1 valid, 0 masked (-1e30), -1 past the cache
-  __shared__ float Ps[DA_WARPS][BK];
-
+  // the dot product's loop is unrolled in full up to d 64; wider heads
+  // unroll by 32 (the same sums in the same order, in less code)
+  constexpr int DOT_UNROLL = D <= 64 ? D : 32;
   const int b = blockIdx.x / KV, kh = blockIdx.x % KV;
   const int g = H / KV;
   const int S = rows.length();
@@ -145,7 +153,7 @@ __global__ void __launch_bounds__(DA_THREADS)
         float sj = -INFINITY;  // a lane past the chunk owns no slot
         if (kk < BK) {
           float dot = 0.0f;
-#pragma unroll
+#pragma unroll (DOT_UNROLL)
           for (int c = 0; c < D; ++c) dot = fmaf(Qs[r][c], Ks[kk][c], dot);
           const int st = St[kk];
           sj = st == 1 ? dot * scale : (st == 0 ? kNegInf : -INFINITY);
@@ -196,23 +204,53 @@ __global__ void __launch_bounds__(DA_THREADS)
   }
 }
 
+
+// shared memory of decode_fwd<T, D, BK>: Qs [DA_GMAX][D], Ks and Vs [BK][D + 1],
+// Ps [DA_WARPS][BK] (fp32), St [BK] (int)
+template <int D, int BK>
+constexpr int smem_bytes() {
+  return (DA_GMAX * D + 2 * BK * (D + 1) + DA_WARPS * BK) * 4 + BK * 4;
+}
+
+template <typename T, int D, int BK, typename Rows>
+__global__ void __launch_bounds__(DA_THREADS)
+    decode_fwd(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+               const Rows rows, const int* __restrict__ cur, T* __restrict__ out, int H,
+               int KV, int window, float scale) {
+  extern __shared__ __align__(16) unsigned char da_smem[];
+  float* f = reinterpret_cast<float*>(da_smem);
+  float* ks = f + DA_GMAX * D;
+  float* vs = ks + BK * (D + 1);
+  float* ps = vs + BK * (D + 1);
+  decode_body<T, D, BK>(q, kc, vc, rows, cur, out, H, KV, window, scale,
+                        reinterpret_cast<float(*)[D]>(f), reinterpret_cast<float(*)[D + 1]>(ks),
+                        reinterpret_cast<float(*)[D + 1]>(vs), reinterpret_cast<float(*)[BK]>(ps),
+                        reinterpret_cast<int*>(ps + DA_WARPS * BK));
+}
+
+template <typename T, int D, int BK, typename Rows>
+cudaError_t launch_one(const void* q, const void* k, const void* v, const Rows& rows,
+                       const int* cur, void* out, int B, int H, int KV, int window,
+                       float scale, cudaStream_t s) {
+  constexpr int smem = smem_bytes<D, BK>();
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(decode_fwd<T, D, BK, Rows>, smem, ready);
+  if (err != cudaSuccess) return err;
+  decode_fwd<T, D, BK, Rows><<<dim3(B * KV), DA_THREADS, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), rows, cur,
+      static_cast<T*>(out), H, KV, window, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, typename Rows>
 cudaError_t launch_bk(int BK, const void* q, const void* k, const void* v, const Rows& rows,
                       const int* cur, void* out, int B, int H, int KV, int window,
                       float scale, cudaStream_t s) {
-  const dim3 grid(B * KV);
   switch (BK) {
-#define REPRO_DECODE_BK(BV)                                                                 \
-  case BV:                                                                                  \
-    decode_fwd<T, D, BV, Rows><<<grid, DA_THREADS, 0, s>>>(                                 \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), rows, \
-        cur, static_cast<T*>(out), H, KV, window, scale);                                   \
-    return cudaGetLastError();
-    REPRO_DECODE_BK(8)
-    REPRO_DECODE_BK(16)
-    REPRO_DECODE_BK(32)
-    REPRO_DECODE_BK(DA_BKMAX)
-#undef REPRO_DECODE_BK
+    case 8: return launch_one<T, D, 8>(q, k, v, rows, cur, out, B, H, KV, window, scale, s);
+    case 16: return launch_one<T, D, 16>(q, k, v, rows, cur, out, B, H, KV, window, scale, s);
+    case DA_BKMAX:
+      return launch_one<T, D, DA_BKMAX>(q, k, v, rows, cur, out, B, H, KV, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -225,6 +263,8 @@ cudaError_t launch_d(int D, int BK, const void* q, const void* k, const void* v,
     case 16: return launch_bk<T, 16>(BK, q, k, v, rows, cur, out, B, H, KV, window, scale, s);
     case 32: return launch_bk<T, 32>(BK, q, k, v, rows, cur, out, B, H, KV, window, scale, s);
     case 64: return launch_bk<T, 64>(BK, q, k, v, rows, cur, out, B, H, KV, window, scale, s);
+    case 128: return launch_bk<T, 128>(BK, q, k, v, rows, cur, out, B, H, KV, window, scale, s);
+    case 256: return launch_bk<T, 256>(BK, q, k, v, rows, cur, out, B, H, KV, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

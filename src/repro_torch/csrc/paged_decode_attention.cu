@@ -14,7 +14,7 @@
 // slice of a stacked arena reads in place); pos arena (N, bs) rows
 // contiguous, `pos_stride` apart; block tables (B, nb) int32 contiguous, -1
 // an unmapped page; current (B,) int32. The chunk is one page: bs is one of
-// 8, 16, 32, 64.
+// 8, 16, 64; D one of 16, 32, 64, 128, 256.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_arena, const void* v_arena, const void* pos_arena,
     const void* block_tables, const void* current, void* out, int B, int H, int KV, int bs,

@@ -24,9 +24,9 @@ from repro_torch.kernels import native
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32      # query heads per kv head the kernel stages at once
-CHUNKS = (8, 16, 32, 64)   # cache slots per online-softmax step the body takes
+CHUNKS = (8, 16, 64)   # cache slots per online-softmax step the body takes
 DEFAULT_CHUNK = 64
 
 

@@ -53,7 +53,7 @@ KERNELS: dict[str, tuple[str, str, list]] = {
               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flash": ("flash_attention.cu", "flash_attention_launch",
               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-              + [_I64] * 9 + [_I, _I, _F, _I, _P]),
+              + [_I64] * 9 + [_I, _I, _F, _I, _I, _P, _I, _I, _P]),
     # two sources, one body (decode_attention.cuh): the monolithic and the
     # paged cache, built side by side
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
