@@ -27,7 +27,13 @@ printing one JSON line for each:
                four key splits with peaked scores (q drawn at 4x), held
                also to 4 roundings of the largest output; the short-query
                plan timed beside other split lengths and one split, on 1
-               and 8 lanes at d 64, 128 and 256; flash bit-identical across
+               and 8 lanes at d 64, 128 and 256; `anemm` (fp32, bf16, fp16)
+               and `sparse` (fp32, bf16) row-invariant: the first rows of a
+               512-row activation bit-identical at 1 to 512 rows, at every
+               main-path (K, N) and two ragged ones; their launch plans
+               (chunks over a cluster, or one block over all chunks) timed
+               side by side at the projections on 8 to 512 rows; flash
+               bit-identical across
                reruns and for 8 lanes against the first 8 of 16; decode and
                the paged decode at d 128 and 256; `anemm`'s fused `epilogue=` against
                its plain version and bit for bit against anemm-then-act_lut;
@@ -106,6 +112,14 @@ printing one JSON line for each:
 
 Then a `kernels` line with every kernel's numbers, the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
+
+    python3 chip_smoke.py --turn LABEL
+
+runs, after the device and build phases, only one turn of a comparison of
+two checkouts on one card (`compare_turn`: matmul and stem-conv times and
+output digests, the fp16 and sparse serves with a profiled round each),
+its records tagged LABEL. Copy this file into the other checkout and run it
+from each in turns (parent, change, change, parent).
 Any failure raises and the exit code is not 0; no phase is skipped. Without a
 CUDA device it exits with code 1 before printing any result; alone in a
 directory, without the port beside it, it fails at the import.
@@ -113,6 +127,7 @@ directory, without the port beside it, it fails at the import.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import hashlib
 import json
@@ -136,7 +151,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import hal  # noqa: E402
 from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
                                        ProgramCache, dtype_name)
-from repro_torch.kernels import native, registry  # noqa: E402
+from repro_torch.kernels import common, native, registry  # noqa: E402
 from repro_torch.kernels.act_lut.ops import lut_activation, table_operands  # noqa: E402
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
@@ -207,6 +222,13 @@ PEAK_ROUNDINGS = 4
 # the short-query plans timed beside the one flash_plan takes: key splits of
 # this many keys (and one split, without the combine pass)
 SPLIT_LENS = (128, 256, 512)
+
+# the row-invariance check of anemm and sparse: activation rows, and ragged
+# (K, N) beside the main-path shapes (sparse's K rounded up to a multiple of
+# 16); the launch plans of the streaming loop timed at these rows
+INVARIANCE_ROWS = (1, 8, 16, 40, 80, 264, 512)
+RAGGED_SHAPES = ((257, 130), (300, 100))
+PLAN_ROWS = (8, 40, 80, 512)
 
 TIMING_REPS = 20
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
@@ -315,26 +337,31 @@ def _compare(out, ref, tol) -> tuple[float, bool]:
     return err, ok
 
 
+def matmul_shapes(cfg) -> dict[str, tuple[int, int]]:
+    """The (K, N) of tinyllama's projections on the serve path."""
+    d, h, kv, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    return {"q_o": (d, h * dh), "k_v": (d, kv * dh), "gate_up": (d, f), "down": (f, d)}
+
+
 def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
     """(kernel, shape label, inputs) at the shapes full tinyllama-1.1b gives
     each kernel on the serve path."""
     dev, bf16 = "cuda", torch.bfloat16
-    d, h, kv, dh, f, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                          cfg.d_ff, cfg.padded_vocab)
+    d, h, kv, dh, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                       cfg.padded_vocab)
 
     def normal(shape, dtype, std=1.0):
         return (torch.from_numpy(rng.normal(size=shape) * std)
                 .to(device=dev, dtype=dtype))
 
     cases = []
-    projections = {"q_o": (d, h * dh), "k_v": (d, kv * dh),
-                   "gate_up": (d, f), "down": (f, d)}
+    projections = matmul_shapes(cfg)
     # the packed forms, packed on the card as the serve path packs them
     packed = {}
     for k, n in list(projections.values()) + [(d, v)]:
         w = normal((k, n), torch.float32, k ** -0.5)
         packed[k, n] = {name: form.pack(w) for name, form in PACKED.items()}
-    shapes = [(label, m, k, n, bf16) for m in (8, 512)
+    shapes = [(label, m, k, n, bf16) for m in (8, 40, 512)
               for label, (k, n) in projections.items()]
     # the fp32 head: prefill's last token, decode's lanes
     shapes += [("head", m, d, v, torch.float32) for m in (1, 8)]
@@ -634,6 +661,72 @@ def time_flash_plans(rng, timer) -> None:
         fa.flash_plan = chosen
 
 
+def check_row_invariance(cfg, failures: list) -> None:
+    """`anemm` and `sparse` in every dtype each takes: the first rows of one
+    512-row activation must come out bit-identical whatever the call's row
+    count (INVARIANCE_ROWS), at every main-path (K, N), the head and two
+    ragged shapes. A row's bits may not depend on the rows beside it: 8-row
+    decode against a 16- to 80-row verify window, a prefix hit's short
+    prefill against a cold one."""
+    rng = np.random.default_rng(5)
+    shapes = [*matmul_shapes(cfg).items(), ("head", (cfg.d_model, cfg.padded_vocab))]
+    shapes += [("ragged", kn) for kn in RAGGED_SHAPES]
+    top = max(INVARIANCE_ROWS)
+    for name in ("anemm", "sparse"):
+        spec = registry.get(name)
+        for label, (k, n) in shapes:
+            if name == "sparse":
+                k = -(-k // 16) * 16
+            w = torch.from_numpy(rng.normal(size=(k, n)) * k ** -0.5).to("cuda", torch.float32)
+            packed = PACKED[name].pack(w) if name in PACKED else None
+            for dtype in spec.dtypes:
+                weights = packed if packed is not None else {"b": w.to(dtype)}
+                a = torch.from_numpy(rng.normal(size=(top, k))).to("cuda", dtype)
+                full = spec.run_kernel({"a": a, **weights})
+                bits = torch.int32 if dtype == torch.float32 else torch.int16
+                diffs, same = {}, True
+                for m in INVARIANCE_ROWS:
+                    out, want = spec.run_kernel({"a": a[:m], **weights}), full[:m]
+                    same = same and torch.equal(out.view(bits), want.view(bits))
+                    diffs[m] = float((out.float() - want.float()).abs().max())
+                emit("row_invariance", kernel=name, dtype=dtype_name(dtype),
+                     shape=f"{label} {k}->{n}", rows=list(INVARIANCE_ROWS),
+                     max_abs_diff=max(diffs.values()), by_rows=diffs, bit_identical=same)
+                if not same:
+                    failures.append(f"{name} {label} {k}->{n} {dtype_name(dtype)}: rows of a "
+                                    f"{top}-row call differ at fewer rows ({diffs})")
+
+
+def time_matmul_plans(cfg, rng, timer) -> None:
+    """The streaming loop's launch plans side by side: at every main-path
+    projection and each M of PLAN_ROWS, bf16, `anemm` and `sparse` with a
+    tile's chunks spread over a cluster and with one block walking them all
+    (the same bits). Timed only, through the wrappers with
+    `common.launch_plan` swapped for the plan under test."""
+    chosen = common.launch_plan
+    bf16 = torch.bfloat16
+    try:
+        for label, (k, n) in matmul_shapes(cfg).items():
+            w = torch.from_numpy(rng.normal(size=(k, n)) * k ** -0.5).to("cuda", torch.float32)
+            weights = {"anemm": {"b": w.to(bf16)}, "sparse": PACKED["sparse"].pack(w)}
+            chunks = common.chunk_plan(k, n, bf16)
+            for m in PLAN_ROWS:
+                a = torch.from_numpy(rng.normal(size=(m, k))).to("cuda", bf16)
+                taken = chosen(m, n, chunks)
+                for name, payload in weights.items():
+                    run, i = registry.get(name).run_kernel, {"a": a, **payload}
+                    ms = {}
+                    for split in sorted({1, chunks.chunks}):
+                        plan = common.LaunchPlan(taken.bm, split)
+                        common.launch_plan = lambda *_, plan=plan: plan
+                        ms[f"split {split}"] = timer.device_ms(lambda: run(i))
+                    common.launch_plan = chosen
+                    emit("matmul_plans", kernel=name, shape=f"{label} M={m} {k}->{n} bf16",
+                         chunks=chunks._asdict(), plan=taken._asdict(), ms_by_split=ms)
+    finally:
+        common.launch_plan = chosen
+
+
 def check_kernels(cfg, timer) -> dict:
     """Every registry case and every main-path shape: kernel vs plain on the
     card. Returns the headline record of each kernel but the paged decode,
@@ -778,6 +871,8 @@ def check_kernels(cfg, timer) -> dict:
     for name, label, inputs in wide_head_inputs(rng):
         check(mf if name == "flash" else registry.get(name), "main " + label, inputs, True)
     check_flash_bits(rng, failures)
+    check_row_invariance(cfg, failures)
+    time_matmul_plans(cfg, rng, timer)
     # the fp32 head widens the bf16 unembed on every call (reference
     # layers.py:158-161): the copy's own device time
     unembed = torch.empty((cfg.d_model, cfg.padded_vocab), dtype=torch.bfloat16,
@@ -796,7 +891,60 @@ def check_kernels(cfg, timer) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def compare_turn(label: str, cfg) -> None:
+    """One turn of a comparison of two checkouts of the port on one card:
+    copy this file into the other checkout and run it with `--turn` from
+    each in turns (parent, change, change, parent). Device times (CUDA-graph
+    replay, L2 flushed) and output digests of the matmul kernels at
+    tinyllama's projections on 8, 40, 80 and 512 rows, the fp32 head on 1
+    and 8 and whisper-small's two stem convs (inputs from a fixed seed, so
+    equal digests mean equal bits), then the fp16 and sparse serves with one
+    profiled round each. It uses only what every checkout of the port has."""
+    rng = np.random.default_rng(11)
+    timer = Timer()
+    bf16 = torch.bfloat16
+
+    def normal(shape, dtype, std=1.0):
+        return torch.from_numpy(rng.normal(size=shape) * std).to("cuda", dtype)
+
+    def record(name, shape, run):
+        out = run()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(out.float().cpu().numpy().tobytes()).hexdigest()[:16]
+        emit("turn_kernel", turn=label, kernel=name, shape=shape,
+             ms=timer.device_ms(run), digest=digest)
+
+    shapes = [(f"{lb} M={m}", m, k, n, bf16) for m in (8, 40, 80, 512)
+              for lb, (k, n) in matmul_shapes(cfg).items()]
+    shapes += [(f"head M={m}", m, cfg.d_model, cfg.padded_vocab, torch.float32) for m in (1, 8)]
+    for shape, m, k, n, dtype in shapes:
+        w = normal((k, n), torch.float32, k ** -0.5)
+        a, b = normal((m, k), dtype), w.to(dtype)
+        record("anemm", shape, lambda: anemm(a, b))
+        for name, form in PACKED.items():
+            i = {"a": a, **form.pack(w)}
+            record(name, shape, lambda: registry.get(name).run_kernel(i))
+    ws = configs.get_config(ENCODER_ARCH)
+    t, d_w, kw = ws.frame_shape[0], ws.d_model, ws.stem_width
+    for shape, cin, stride in (("stem conv2", d_w, ws.stem_stride), ("stem conv1", ws.n_mels, 1)):
+        i = {"x": normal((1, 1, t, cin), bf16),
+             "w": normal((1, kw, cin, d_w), bf16, (kw * cin) ** -0.5),
+             "bias": normal((d_w,), bf16, 0.1), "stride": (1, stride), "padding": "SAME",
+             "epilogue": "gelu"}
+        record("conv2d", shape, lambda: registry.get("conv2d").run_kernel(i))
+    for form in ("fp16", "sparse"):
+        emit("turn_serve", turn=label, weight_form=form)
+        serve_main_path(form)
+        profile_serve(form, serve_argv(cfg, 1, form))
+
+
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description="the port on one CUDA card (no arguments: "
+                                     "every phase)")
+    parser.add_argument("--turn", metavar="LABEL",
+                        help="run only one turn of a comparison of two checkouts "
+                             "(compare_turn), its records tagged LABEL")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this needs a CUDA card",
               file=sys.stderr)
@@ -816,6 +964,12 @@ def main() -> int:
          ptxas={n: ptxas_report(txt) for n, txt in built["log"].items()})
 
     cfg = configs.get_config("tinyllama-1.1b")
+    if args.turn is not None:
+        compare_turn(args.turn, cfg)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     timer = Timer()
     headline = check_kernels(cfg, timer)
     check_parity()
@@ -1275,7 +1429,7 @@ def profile_serve(label: str, argv: list[str]) -> None:
     # the served round starts at the first of the port's kernels (before it:
     # weight init and the floor measurement)
     ours = [s for s, _, n in kernels
-            if n.startswith(("repro::tile::matmul", "flash_", "decode_fwd"))]
+            if n.startswith(("repro::tile::", "flash_", "decode_fwd"))]
     first = min(ours) if ours else 0.0
     spans, by_name = [], {}
     for start, end, name in kernels:
@@ -1455,4 +1609,4 @@ def serve_encoder(timer) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -35,20 +35,27 @@ struct AneEpilogue {
   }
 };
 
-// Launch the tile loop for A producer `ap` and B producer `prod` with the
-// ANE epilogue (the LUT variant when `lut` is not null) in dtype T.
+// Call run(epilogue) with the ANE epilogue in dtype T (the LUT variant
+// when `lut` is not null); returns what run returns.
+template <typename T, typename Run>
+int with_ane(const float* scale, const float* bias, const float* lut, int ane_mode,
+             const Run& run) {
+  if (lut != nullptr) return run(AneEpilogue<T, true>{scale, bias, lut, ane_mode});
+  return run(AneEpilogue<T, false>{scale, bias, nullptr, ane_mode});
+}
+
+// Launch the blocked tile loop for A producer `ap` and B producer `prod`
+// with the ANE epilogue in dtype T.
 template <typename T, typename AP, typename P>
 int launch_ane(const AP& ap, const P& prod, const float* scale, const float* bias,
                const float* lut, int ane_mode, void* out, int M, int N, int K,
                cudaStream_t s) {
-  auto run = [&](const auto& epi) {
+  return with_ane<T>(scale, bias, lut, ane_mode, [&](const auto& epi) {
     if constexpr (std::is_same_v<T, float>)
       return tile::launch_f32(ap, prod, epi, out, M, N, K, s);
     else
       return tile::launch_mma<T>(ap, prod, epi, out, M, N, K, s);
-  };
-  if (lut != nullptr) return run(AneEpilogue<T, true>{scale, bias, lut, ane_mode});
-  return run(AneEpilogue<T, false>{scale, bias, nullptr, ane_mode});
+  });
 }
 
 }  // namespace repro

@@ -1,14 +1,61 @@
-// The tile loop of the port's matmuls: A (M, K) x B (K, N) -> (M, N) with an
-// fp32 accumulator, shared by anemm (dense A and B), palette_matmul and
-// sparse_matmul (B packed in device memory, decoded in the loop) and conv2d
-// (A gathered from an NHWC image: an implicit GEMM). Each block owns one
-// output tile and loops over K itself (no split-K, so an output element's sum
-// order does not depend on M). 16-bit activations go through WMMA with fp32
-// fragments, fp32 activations through true fp32 FMA (never TF32). Ragged
-// edges are masked in the tile loads: both producers write zero outside the
-// matrix, so nothing is padded in device memory.
+// The tile loops of the port's matmuls: A (M, K) x B (K, N) -> (M, N) with an
+// fp32 accumulator and an epilogue functor, rounded once to the activation's
+// dtype T. Two loops live here.
 //
-// An A-tile producer AP provides
+// The streaming loop (`matmul_stream`, namespace `stream`): bf16 / fp16
+// anemm and bf16 sparse_matmul, the matmuls of the serve path. It replaces
+// the TPU kernels' blocked product (src/repro/kernels/anemm/anemm.py:69,
+// src/repro/kernels/sparse/sparse_matmul.py:85), whose sequential K grid
+// axis carries `acc += dot(chunk)` in VMEM scratch.
+//   * The weight's N is the MMA's 16-row side (Cᵀ = Bᵀ·Aᵀ): a block owns BN =
+//     64 weight columns, 16 per warp, against BM = 8, 16, 32 or 64 activation
+//     rows, the MMA's narrow side, so a decode step (M = 8) multiplies no
+//     padded rows. mma.sync.m16n8k16 with fp32 accumulators, fed by
+//     ldmatrix.trans from the staged (K, N) weight rows and ldmatrix from the
+//     staged activation rows.
+//   * Each 64-deep K step's weight tile (or sparse_matmul's raw values and
+//     selector bytes) and activation slice stream through a four-stage ring
+//     of 16-byte cp.async copies into 128-byte rows whose 16-byte chunks are
+//     swizzled by row (conflict-free ldmatrix without padding). All four
+//     stages are requested before the first MMA, and a slot is refilled as
+//     soon as its step is consumed, so four steps are in flight while one
+//     computes. A weight producer turns its staged tile into the MMA's A
+//     fragments (dense: one ldmatrix.trans; sparse: the 1:2 pairs rebuilt in
+//     registers).
+//   * What bounds it on an H100: at decode (M = 8 lanes) the weight is read
+//     once for 8 rows, ~2 operations a byte, so bytes (3.35 TB/s), and the
+//     loop's job is to have the whole weight requested at once: a tile's 8
+//     chunks go to 8 blocks, a 4-stage ring holds a 2048-deep chunk whole,
+//     and 6 blocks of 36 KB fit an SM, so tinyllama's widest projection (704
+//     blocks) runs in one wave. 128-column blocks, 2 or 4 chunks and an L2
+//     prefetch hint measured no faster there (PERF.md). At prefill (M = 512)
+//     a 64x64 tile does 32 operations a staged byte, so the tensor cores'
+//     rate bounds it (989 TFLOP/s dense bf16), of which mma.sync from 4-warp
+//     blocks reaches a fraction; a wgmma body is later work.
+//   * A row's bits do not depend on M. K is cut into chunks by the wrapper's
+//     plan, a function of (K, N, dtype) alone (kernels/common.py,
+//     `chunk_plan`): at most 8 chunks of a multiple of 64. Each chunk's
+//     partial sum starts from zero and runs its 16-deep MMA steps in K
+//     order; the partials are added to a zero total in chunk order, in fp32,
+//     then the epilogue runs once. Only who computes a chunk varies with M:
+//     with few output tiles (decode) the chunks of a tile go to the `split`
+//     blocks of one thread-block cluster, which add them in rank order
+//     through distributed shared memory, each rank a slice of the tile (no
+//     workspace, no second launch); with many tiles (prefill) one block walks
+//     every chunk with a fresh accumulator and adds each into its total.
+//     Every element is the same MMA instruction on the same operands in the
+//     same order either way, at any BM.
+//   * Ragged shapes take the same path: rows past M, columns past N and K
+//     past the matrix are zero-filled in the ring (copies of 0 bytes), and
+//     rows that are not 16-byte aligned are staged element by element.
+//
+// The blocked loop (`matmul_mma`, `matmul_f32`): the first port's loop,
+// kept as it was for palette_matmul and conv2d (16-bit, WMMA) and for every
+// fp32 product (true fp32 FMA, never TF32): each block owns one 64x64
+// output tile and loops over all of K itself, without pipelining, so an
+// element's sum order is the K order whatever M is.
+//
+// An A-tile producer AP of the blocked loop provides
 //   template <int ROWS, int COLS, int LDA, int THREADS>
 //   __device__ void load(T* dst, int m0, int k0) const;      (16-bit loop)
 //     write the ROWS x COLS tile of A at (m0, k0) into dst (leading
@@ -17,7 +64,7 @@
 //     one element of A, zero outside the matrix.
 // DenseA below reads a row-major matrix.
 //
-// A B-tile producer P provides
+// A B-tile producer P of the blocked loop provides
 //   struct Smem;                                  its shared-memory state
 //   __device__ void prepare(Smem&) const;         fill it (all threads)
 //   template <typename T, int ROWS, int COLS, int LDB, int THREADS>
@@ -25,16 +72,26 @@
 //     write the dense ROWS x COLS tile of B at (k0, n0) into dst (leading
 //     dimension LDB), already in the activation's dtype T, zero outside the
 //     matrix; k0 is a multiple of 16.
+// A weight producer W of the streaming loop provides
+//   static constexpr int kStageBytes;             its share of a ring stage
+//   __device__ void issue(unsigned char* stage, int k0, int n0) const;
+//     start the copies of the K step at k0 (a multiple of 64), columns
+//     n0..n0+63, into the stage, zero outside the matrix;
+//   template <typename T>
+//   __device__ void fragment(uint32_t (&a)[4], const unsigned char* stage,
+//                            int kk, int nw, int lane) const;
+//     the A fragment (Wᵀ rows nw..nw+15, K kk..kk+15 of the step) in T.
 // An epilogue E provides
 //   __device__ float operator()(float acc, int n) const;
 //     the fp32 value stored (rounded once to T) for output column n.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 namespace tile {
@@ -274,6 +331,283 @@ int launch(const P& prod, const void* a, void* out, int M, int N, int K, int dty
                                      N, K, s);
   return cudaErrorInvalidValue;
 }
+
+// ---------------------------------------------------------------------------
+// The streaming loop (bf16 / fp16)
+// ---------------------------------------------------------------------------
+
+namespace stream {
+
+constexpr int BN = 64;       // weight columns a block owns: 4 warps x 16
+constexpr int BK = 64;       // K a ring stage holds
+constexpr int THREADS = 128;
+constexpr int STAGES = 4;
+constexpr int MAX_SPLIT = 8;  // chunks a plan may have: a portable cluster
+constexpr int ROW = 64;       // 16-bit elements a staged row holds (BN = BK = ROW)
+constexpr int LDO = BN + 4;   // a row of the fp32 output tile
+constexpr int VEC = 8;        // 16-bit elements a 16-byte copy moves
+
+// Element offset of (r, c) in a staged tile of ROW-wide 16-bit rows (128
+// bytes, all 32 banks): the 16-byte chunk c / 8 sits at chunk (c / 8) ^ (r %
+// 8), so the 8 rows one ldmatrix reads, and the 4 rows of a sparse
+// fragment's reads, fall on distinct banks without padding.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * ROW + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// the ring stage of an instance: the activation slice, then the weight's share
+template <int BM>
+__host__ __device__ constexpr int x_bytes() { return BM * ROW * 2; }
+
+template <int BM, typename W>
+__host__ __device__ constexpr int stage_bytes() {
+  return (x_bytes<BM>() + W::kStageBytes + 127) / 128 * 128;
+}
+
+// the ring, reused after the K loop for the fp32 output tile (BM x LDO)
+template <int BM, typename W>
+constexpr int smem_bytes() {
+  constexpr int ring = STAGES * stage_bytes<BM, W>(), out = BM * LDO * 4;
+  return ring > out ? ring : out;
+}
+
+// ROWS x ROW 16-bit elements of a row-major (R x Cn, leading dim ld) matrix
+// at (r0, c0) into swizzled shared rows: 16-byte copies when `vec` (Cn % 8
+// == 0, base 16-byte aligned: a copy is all in or all out), else element by
+// element; zero outside the matrix
+template <typename T, int ROWS>
+__device__ __forceinline__ void stage(T* __restrict__ dst, const T* __restrict__ src, int ld,
+                                      int R, int Cn, int r0, int c0, bool vec) {
+  constexpr int CPR = ROW / VEC;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR, c = (i % CPR) * VEC;
+    const int gr = r0 + r, gc = c0 + c;
+    T* d = dst + swz(r, c);
+    if (vec) {
+      const bool in = gr < R && gc < Cn;
+      cp_async16(smem_addr(d), src + (in ? (size_t)gr * ld + gc : 0), in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        d[e] = (gr < R && gc + e < Cn) ? src[(size_t)gr * ld + gc + e] : from_f32<T>(0.0f);
+    }
+  }
+}
+
+// the activation: a dense row-major (M, K) matrix in T
+template <typename T>
+struct DenseX {
+  const T* __restrict__ a;
+  int M, K;
+  bool vec;
+
+  template <int BM>
+  __device__ __forceinline__ void issue(unsigned char* st, int m0, int k0) const {
+    stage<T, BM>(reinterpret_cast<T*>(st), a, K, M, K, m0, k0, vec);
+  }
+};
+
+template <typename T>
+DenseX<T> dense_x(const void* a, int M, int K) {
+  return {static_cast<const T*>(a), M, K,
+          (K % VEC == 0) && (reinterpret_cast<uintptr_t>(a) & 15u) == 0};
+}
+
+// the weight as a dense row-major (K, N) matrix in T: staged as it is, BK
+// rows of BN; Wᵀ fragments by ldmatrix.trans
+template <typename T>
+struct DenseW {
+  const T* __restrict__ w;
+  int K, N;
+  bool vec;
+
+  static constexpr int kStageBytes = BK * ROW * 2;
+
+  __device__ __forceinline__ void issue(unsigned char* st, int k0, int n0) const {
+    stage<T, BK>(reinterpret_cast<T*>(st), w, N, K, N, k0, n0, vec);
+  }
+
+  template <typename U>
+  __device__ __forceinline__ void fragment(uint32_t (&a)[4], const unsigned char* st, int kk,
+                                           int nw, int lane) const {
+    static_assert(std::is_same_v<T, U>, "a dense weight is stored in the activation's dtype");
+    // matrices (n 0-7 | 8-15) x (k 0-7 | 8-15) of Wᵀ: rows k of the stage
+    const int k = kk + (lane & 7) + ((lane >> 4) << 3), n = nw + (((lane >> 3) & 1) << 3);
+    ldmatrix_x4_trans(a, smem_addr(st + swz(k, n) * 2));
+  }
+};
+
+template <typename T>
+DenseW<T> dense_w(const void* w, int K, int N) {
+  return {static_cast<const T*>(w), K, N,
+          (N % VEC == 0) && (reinterpret_cast<uintptr_t>(w) & 15u) == 0};
+}
+
+// BM/8 B fragments (Xᵀ, K kk..kk+15, rows j*8..j*8+7) from the staged
+// activation rows
+template <int BM>
+__device__ __forceinline__ void x_fragments(uint32_t (&b)[BM / 8][2], uint32_t xs, int kk,
+                                            int lane) {
+  const int c = kk + (((lane >> 3) & 1) << 3);
+  if constexpr (BM == 8) {
+    ldmatrix_x2(b[0], xs + swz(lane & 7, c) * 2);
+  } else {
+#pragma unroll
+    for (int j = 0; j < BM / 8; j += 2) {
+      const int r = j * 8 + (lane & 7) + ((lane >> 4) << 3);
+      uint32_t t[4];
+      ldmatrix_x4(t, xs + swz(r, c) * 2);
+      b[j][0] = t[0];
+      b[j][1] = t[1];
+      b[j + 1][0] = t[2];
+      b[j + 1][1] = t[3];
+    }
+  }
+}
+
+// One output tile: BN weight columns (blockIdx.x / split) x BM activation
+// rows (blockIdx.y). `split` 1: the block walks every chunk of `kc` K
+// (a multiple of BK); `split` > 1 (a cluster of `split` blocks along x, one
+// per chunk): rank r computes chunk r and adds a slice of the tile.
+template <typename T, int BM, typename XP, typename W, typename E>
+__global__ void __launch_bounds__(THREADS)
+    matmul_stream(const XP xp, const W wp, const E epi, T* __restrict__ C, int M, int N, int K,
+                  int kc, int split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int XB = x_bytes<BM>(), SB = stage_bytes<BM, W>(), NJ = BM / 8;
+  const int rank = blockIdx.x % split;
+  const int n0 = (blockIdx.x / split) * BN, m0 = blockIdx.y * BM;
+  const int kb = split > 1 ? rank * kc : 0;
+  const int ke = split > 1 ? min(K, kb + kc) : K;
+  const int steps = (ke - kb + BK - 1) / BK, chunk_steps = kc / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = warp * 16;
+
+  auto issue = [&](int s) {
+    unsigned char* st = smem + (s % STAGES) * SB;
+    xp.template issue<BM>(st, m0, kb + s * BK);
+    wp.issue(st + XB, kb + s * BK, n0);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+
+  float acc[NJ][4], total[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = total[j][e] = 0.0f;
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 1>();  // step s landed (this thread's copies)
+    __syncthreads();              // ... everyone's
+    const unsigned char* st = smem + (s % STAGES) * SB;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[4], b[NJ][2];
+      wp.template fragment<T>(a, st + XB, kk, nw, lane);
+      x_fragments<BM>(b, smem_addr(st), kk, lane);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma16816<T>(acc[j], a, b[j][0], b[j][1]);
+    }
+    if (split == 1 && ((s + 1) % chunk_steps == 0 || s + 1 == steps)) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          total[j][e] = __fadd_rn(total[j][e], acc[j][e]);
+          acc[j][e] = 0.0f;
+        }
+    }
+    __syncthreads();  // step s's slot is free
+    if (s + STAGES < steps) issue(s + STAGES);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it becomes the fp32 output tile
+
+  // accumulator layout: c0/c1 at (n = g, m = 2q, 2q+1), c2/c3 at n = g + 8
+  float* out = reinterpret_cast<float*>(smem);
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = nw + g + (e >> 1) * 8, m = j * 8 + 2 * q + (e & 1);
+      out[m * LDO + n] = split > 1 ? acc[j][e] : total[j][e];
+    }
+
+  auto store = [&](int i, float v) {
+    const int m = i / BN, n = i % BN, gm = m0 + m, gn = n0 + n;
+    if (gm < M && gn < N) C[(size_t)gm * N + gn] = from_f32<T>(epi(v, gn));
+  };
+  if (split == 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * BN; i += THREADS) store(i, out[(i / BN) * LDO + i % BN]);
+    return;
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank's partial is in its shared memory
+  for (int i = rank * THREADS + threadIdx.x; i < BM * BN; i += split * THREADS) {
+    const int o = (i / BN) * LDO + i % BN;
+    float p[MAX_SPLIT];  // every rank's read in flight before the first add
+#pragma unroll
+    for (int c = 0; c < MAX_SPLIT; ++c)
+      p[c] = c < split ? cluster.map_shared_rank(out, c)[o] : 0.0f;
+    float t = 0.0f;
+#pragma unroll
+    for (int c = 0; c < MAX_SPLIT; ++c)
+      if (c < split) t = __fadd_rn(t, p[c]);
+    store(i, t);
+  }
+  cluster.sync();  // no rank leaves while another still reads its partial
+}
+
+template <typename T, int BM, typename XP, typename W, typename E>
+cudaError_t launch_bm(const XP& xp, const W& wp, const E& epi, void* out, int M, int N, int K,
+                      int kc, int split, cudaStream_t s) {
+  constexpr int smem = smem_bytes<BM, W>();
+  static_assert(smem <= 232448, "an H100 block has 227 KB of shared memory");
+  auto* kernel = matmul_stream<T, BM, XP, W, E>;
+  static bool ready[kMaxDevices] = {};
+  cudaError_t err = allow_dynamic_smem(kernel, smem, ready);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN * split, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, xp, wp, epi, static_cast<T*>(out), M, N, K, kc, split);
+}
+
+// Launch the streaming loop for activation rows BM = `bm` (8, 16, 32 or 64)
+// with the chunk plan (kc, split): kc a positive multiple of BK; split 1 or
+// the plan's chunk count ceil(K / kc), at most MAX_SPLIT.
+template <typename T, typename XP, typename W, typename E>
+cudaError_t launch(const XP& xp, const W& wp, const E& epi, void* out, int M, int N, int K,
+                   int kc, int bm, int split, cudaStream_t s) {
+  const int chunks = kc > 0 ? (K + kc - 1) / kc : 0;
+  if (kc <= 0 || kc % BK != 0 || chunks > MAX_SPLIT || (split != 1 && split != chunks))
+    return cudaErrorInvalidValue;
+  switch (bm) {
+    case 8: return launch_bm<T, 8>(xp, wp, epi, out, M, N, K, kc, split, s);
+    case 16: return launch_bm<T, 16>(xp, wp, epi, out, M, N, K, kc, split, s);
+    case 32: return launch_bm<T, 32>(xp, wp, epi, out, M, N, K, kc, split, s);
+    case 64: return launch_bm<T, 64>(xp, wp, epi, out, M, N, K, kc, split, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace stream
 
 }  // namespace tile
 }  // namespace repro

@@ -10,14 +10,17 @@ dtype (fp32, bf16 or fp16) with an fp32 accumulator, then per-N `scale`,
 the input dtype.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version `anemm_ref`. Backward (reference `ops.py:29`) comes with training.
+version `anemm_ref`. The kernel sums K in the chunks of `common.chunk_plan`
+(a function of K, N and dtype, so a row's bits do not depend on M) and
+spreads them over blocks by `common.launch_plan`. Backward (reference
+`ops.py:29`) comes with training.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import native
+from repro_torch.kernels import common, native
 from repro_torch.kernels.act_lut.ops import table_operands
 from repro_torch.kernels.anemm.ref import anemm_ref
 
@@ -58,11 +61,14 @@ def anemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None,
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    chunks = common.chunk_plan(k, n, a.dtype)
+    plan = common.launch_plan(m, n, chunks)
     with torch.cuda.device(a.device):
         native.launch(
             "anemm", a.data_ptr(), b.data_ptr(),
             None if scale32 is None else scale32.data_ptr(),
             None if bias32 is None else bias32.data_ptr(),
-            None if table is None else table.data_ptr(), out.data_ptr(), m, n, k, native.dtype_code(a.dtype),
-            int(ane_mode), torch.cuda.current_stream(a.device).cuda_stream)
+            None if table is None else table.data_ptr(), out.data_ptr(), m, n, k,
+            native.dtype_code(a.dtype), int(ane_mode), chunks.kc, plan.bm, plan.split,
+            torch.cuda.current_stream(a.device).cuda_stream)
     return out

@@ -50,7 +50,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # kernel -> (source file, C entry point, argtypes)
 KERNELS: dict[str, tuple[str, str, list]] = {
     "anemm": ("anemm.cu", "anemm_launch",
-              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash": ("flash_attention.cu", "flash_attention_launch",
               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
               + [_I64] * 9 + [_I, _I, _F, _I, _I, _P, _I, _I, _P]),
@@ -64,7 +64,7 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "palette": ("palette_matmul.cu", "palette_matmul_launch",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "sparse": ("sparse_matmul.cu", "sparse_matmul_launch",
-               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # one source, two entry points: the chain and the tree verify/accept
     "specdec": ("specdec.cu", "specdec_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "specdec_tree": ("specdec.cu", "specdec_tree_launch",

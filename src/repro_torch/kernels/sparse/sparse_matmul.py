@@ -17,15 +17,16 @@ between its shared-memory load and the matrix unit.
 (K % 16 == 0) and returns (M, N) in `a.dtype`: each value goes through fp32
 to `a.dtype`, the product accumulates in fp32 and rounds once. A CUDA tensor
 launches the kernel (or raises); a CPU tensor runs the plain version
-`sparse_matmul_ref`.
+`sparse_matmul_ref`. The kernel sums K in `anemm`'s chunks
+(`common.chunk_plan`, never a function of M) over `common.launch_plan`'s
+blocks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import native
-from repro_torch.kernels.common import check_operands
+from repro_torch.kernels import common, native
 
 DTYPES = (torch.float32, torch.bfloat16)
 VALUE_DTYPES = (torch.float16, torch.bfloat16)
@@ -74,7 +75,7 @@ def sparse_matmul(a: torch.Tensor, values: torch.Tensor,
         raise ValueError(f"sparse: K = {k} must be a multiple of 16 "
                          "(selector bits pack 8 pairs a byte)")
     n = values.shape[1]
-    check_operands("sparse", a, DTYPES,
+    common.check_operands("sparse", a, DTYPES,
                    {"values": (values, (k // 2, n), VALUE_DTYPES),
                     "selector": (selector, (k // 16, n), (torch.uint8,))})
     if a.device.type == "cpu":
@@ -82,9 +83,11 @@ def sparse_matmul(a: torch.Tensor, values: torch.Tensor,
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    chunks = common.chunk_plan(k, n, a.dtype)
+    plan = common.launch_plan(m, n, chunks)
     with torch.cuda.device(a.device):
         native.launch("sparse", a.data_ptr(), values.data_ptr(), selector.data_ptr(),
                       out.data_ptr(), m, n, k, native.dtype_code(a.dtype),
-                      native.dtype_code(values.dtype),
+                      native.dtype_code(values.dtype), chunks.kc, plan.bm, plan.split,
                       torch.cuda.current_stream(a.device).cuda_stream)
     return out

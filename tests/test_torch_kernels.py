@@ -16,6 +16,8 @@ The CUDA kernels themselves run only on a card: the `cuda`-marked tests at
 the end hold each kernel against its plain version there and skip here.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +26,7 @@ import torch
 from repro.kernels import registry as jreg
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core.dispatch import KernelDispatcher
-from repro_torch.kernels import native
+from repro_torch.kernels import common, native
 from repro_torch.kernels import registry as treg
 from repro_torch.kernels.anemm.anemm import anemm
 from repro_torch.kernels.anemm.ref import anemm_ref
@@ -32,7 +34,8 @@ from repro_torch.kernels.flash.decode_attention import decode_attention
 from repro_torch.kernels.flash.flash_attention import flash_attention
 from repro_torch.kernels.palette.palette_matmul import palette_matmul
 from repro_torch.kernels.palette.ref import palette_matmul_ref
-from repro_torch.kernels.sparse.sparse_matmul import sparse_matmul
+from repro_torch.kernels.sparse.ref import sparse_matmul_ref
+from repro_torch.kernels.sparse.sparse_matmul import pack_pair_sparse, sparse_matmul
 
 KERNELS = ("anemm", "palette", "sparse", "flash", "decode_attention")
 LUT_ULPS = 2   # a palette codebook entry against the reference's (see above)
@@ -307,6 +310,92 @@ def test_palette_ragged_k_matches_pallas():
 
 
 # ---------------------------------------------------------------------------
+# The streaming loop's plan (kernels/common.py): the sum order reads K, N
+# and dtype, never M; the launch that spreads it stays within the card
+# ---------------------------------------------------------------------------
+
+# every K of the port's matmuls (tinyllama, whisper-small, the registry
+# rows) and the shapes around a chunk's edges
+PLAN_KS = (1, 8, 16, 32, 63, 64, 65, 130, 144, 256, 257, 300, 384, 512, 768, 2048,
+           3072, 5632, 32000)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def test_chunk_plan_reads_k_n_and_dtype_never_m():
+    assert list(inspect.signature(common.chunk_plan).parameters) == ["k", "n", "dtype"]
+
+
+@pytest.mark.parametrize("k", PLAN_KS)
+def test_chunk_plan_tiles_k_in_order(k):
+    for dtype in HALF_DTYPES:
+        kc, chunks = common.chunk_plan(k, 2048, dtype)
+        assert kc % common.STREAM_BK == 0 and 1 <= chunks <= common.MAX_CHUNKS
+        spans = [(c * kc, min(k, (c + 1) * kc)) for c in range(chunks)]
+        assert spans[0][0] == 0 and spans[-1][1] == k
+        assert all(lo < hi for lo, hi in spans)                 # no empty chunk
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        # the fewest steps a chunk that keep within MAX_CHUNKS
+        steps = -(-k // common.STREAM_BK)
+        assert kc // common.STREAM_BK == -(-steps // common.MAX_CHUNKS)
+        # the order is the same for every N and both 16-bit dtypes
+        assert {common.chunk_plan(k, n, dt) for n in (8, 130, 256, 5632, 32000)
+                for dt in HALF_DTYPES} == {(kc, chunks)}
+    assert common.chunk_plan(k, 2048, torch.float32) == (k, 1)   # one fmaf chain
+
+
+@pytest.mark.parametrize("m", (1, 2, 8, 9, 16, 17, 40, 64, 65, 80, 264, 512, 4096))
+def test_launch_plan_within_card_limits(m):
+    for k in PLAN_KS:
+        for n in (8, 100, 130, 256, 2048, 5632, 32000):
+            chunks = common.chunk_plan(k, n, torch.bfloat16)
+            bm, split = common.launch_plan(m, n, chunks)
+            assert bm in common.STREAM_ROWS and bm >= min(m, common.STREAM_ROWS[-1])
+            assert split in (1, chunks.chunks) and split <= 8   # a portable cluster
+            tiles = -(-n // common.STREAM_BN) * -(-m // bm)
+            assert (split > 1) <= (tiles < common.SPLIT_TILES)
+
+
+SMEM_LIMIT = 232_448   # shared memory an H100 block may use (227 KB)
+SM_SMEM = 233_472      # an SM's shared memory for blocks (228 KB), 1 KB a block reserved
+
+
+def stream_smem_bytes(bm: int, weight: str) -> int:
+    """smem_bytes of tile_matmul.cuh's streaming loop, restated: a ring of 4
+    stages of the activation slice (bm rows of 64 16-bit values) and the
+    weight's share (dense: 64 such rows; sparse: 32 value rows and 4
+    selector rows of 64 bytes), each rounded up to 128 bytes, or the fp32
+    output tile (bm x 68) if larger."""
+    share = {"dense": 64 * 128, "sparse": 32 * 128 + 4 * 64}[weight]
+    stage = -(-(bm * 128 + share) // 128) * 128
+    return max(4 * stage, bm * 68 * 4)
+
+
+def test_stream_shared_memory_fits_a_block():
+    for bm in common.STREAM_ROWS:
+        for weight in ("dense", "sparse"):
+            smem = stream_smem_bytes(bm, weight)
+            assert smem <= SMEM_LIMIT
+            # an 8-row decode tile: six blocks an SM, so that gate_up's 704
+            # blocks (88 tiles x 8 chunks) run in one wave on 132 SMs
+            assert bm > 8 or 6 * (smem + 1024) <= SM_SMEM
+
+
+def test_split_and_prefill_plans_at_the_main_path():
+    """tinyllama's projections: decode (8 rows) and a verify window (40)
+    spread the chunks over a cluster; a 512-token prefill of the wide
+    projections walks them in one block."""
+    shapes = {"q_o": (2048, 2048), "k_v": (2048, 256), "gate_up": (2048, 5632),
+              "down": (5632, 2048)}
+    for k, n in shapes.values():
+        chunks = common.chunk_plan(k, n, torch.bfloat16)
+        assert chunks == ((256, 8) if k == 2048 else (704, 8))
+        assert common.launch_plan(8, n, chunks) == (8, 8)
+        assert common.launch_plan(40, n, chunks) == (64, 8)
+    assert common.launch_plan(512, 5632, common.chunk_plan(2048, 5632, torch.bfloat16)) \
+        == (64, 1)
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -370,3 +459,38 @@ def test_cuda_packed_wrappers_refuse_fp16_activations(cuda_device):
     a, values, selector = (t.to(cuda_device) for t in _sparse_operands())
     with pytest.raises(TypeError):
         sparse_matmul(a.half(), values, selector)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_rows_do_not_depend_on_m(cuda_device, monkeypatch):
+    """The first rows of a 96-row activation come out bit-identical at 1 to
+    96 rows, with a tile's chunks over a cluster (the plan at these sizes)
+    and walked by one block: anemm in three dtypes, sparse in two, at K of 8
+    chunks and of 6 (the last one short), N aligned and ragged."""
+    taken = common.launch_plan
+
+    def one_block(m, n, chunks):
+        return common.LaunchPlan(taken(m, n, chunks).bm, 1)
+
+    rng = np.random.default_rng(6)
+    for k, n in ((512, 192), (272, 130), (1040, 72)):
+        w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32))
+        values, selector = (t.to(cuda_device) for t in pack_pair_sparse(w))
+        runs = {("anemm", dt): (lambda a, dt=dt: anemm(a, w.to(cuda_device, dt)))
+                for dt in treg.get("anemm").dtypes}
+        runs.update({("sparse", dt): (lambda a: sparse_matmul(a, values, selector))
+                     for dt in treg.get("sparse").dtypes})
+        for (name, dt), run in runs.items():
+            a = torch.from_numpy(rng.normal(size=(96, k))).to(cuda_device, dt)
+            full = run(a)
+            bits = torch.int32 if dt == torch.float32 else torch.int16
+            for m in (1, 8, 16, 40, 65, 80, 96):
+                with monkeypatch.context() as patch:
+                    patch.setattr(common, "launch_plan", one_block)
+                    walked = run(a[:m])
+                for got in (run(a[:m]), walked):
+                    assert torch.equal(got.view(bits), full[:m].view(bits)), (name, dt, k, n, m)
+            want = anemm_ref(a, w.to(cuda_device, dt)) if name == "anemm" else \
+                sparse_matmul_ref(a, values, selector)
+            rtol, atol = treg.get(name).tol(dt)
+            torch.testing.assert_close(full.float(), want.float(), rtol=rtol, atol=atol)
