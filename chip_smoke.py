@@ -27,12 +27,16 @@ printing one JSON line for each:
                four key splits with peaked scores (q drawn at 4x), held
                also to 4 roundings of the largest output; the short-query
                plan timed beside other split lengths and one split, on 1
-               and 8 lanes at d 64, 128 and 256; `anemm` (fp32, bf16, fp16)
-               and `sparse` (fp32, bf16) row-invariant: the first rows of a
-               512-row activation bit-identical at 1 to 512 rows, at every
-               main-path (K, N) and two ragged ones; their launch plans
-               (chunks over a cluster, or one block over all chunks) timed
-               side by side at the projections on 8 to 512 rows; flash
+               and 8 lanes at d 64, 128 and 256; `anemm` (fp32, bf16, fp16),
+               `sparse` and `palette` (fp32, bf16) row-invariant: the first
+               rows of a 512-row activation bit-identical at 1 to 512 rows,
+               at every main-path (K, N) and two ragged ones; `conv2d` (fp32,
+               bf16, fp16) at both stem convs: the first images of a
+               4-image call bit-identical in calls of 1 to 4 images; the
+               three matmuls' launch plans (chunks over a cluster, or one
+               block over all chunks) timed side by side at the projections
+               on 8 to 512 rows; each stem conv timed fused, without its
+               epilogue and as `anemm` on its implicit GEMM's operands; flash
                bit-identical across
                reruns and for 8 lanes against the first 8 of 16; decode and
                the paged decode at d 128 and 256; `anemm`'s fused `epilogue=` against
@@ -117,7 +121,8 @@ limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
 
 runs, after the device and build phases, only one turn of a comparison of
 two checkouts on one card (`compare_turn`: matmul and stem-conv times and
-output digests, the fp16 and sparse serves with a profiled round each),
+output digests, the fp16, sparse and int4 serves with a profiled round
+each),
 its records tagged LABEL. Copy this file into the other checkout and run it
 from each in turns (parent, change, change, parent).
 Any failure raises and the exit code is not 0; no phase is skipped. Without a
@@ -390,13 +395,10 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
     # port (conv2 first: the headline), the GELU table over the stem's
     # output, the pools of the pyramid
     w = configs.get_config(ENCODER_ARCH)
-    t, d_w, kw = w.frame_shape[0], w.d_model, w.stem_width
-    for label, cin, stride in (("conv2", d_w, w.stem_stride), ("conv1", w.n_mels, 1)):
-        cases.append(("conv2d", f"stem {label} (1,1,{t},{cin})->{d_w} s{stride} gelu bf16",
-                      {"x": normal((1, 1, t, cin), bf16),
-                       "w": normal((1, kw, cin, d_w), bf16, (kw * cin) ** -0.5),
-                       "bias": normal((d_w,), bf16, 0.1), "stride": (1, stride),
-                       "padding": "SAME", "epilogue": "gelu"}))
+    t, d_w = w.frame_shape[0], w.d_model
+    for label, i in stem_conv_inputs(rng):
+        dims = ",".join(map(str, i["x"].shape))
+        cases.append(("conv2d", f"stem {label} ({dims})->{d_w} s{i['stride'][1]} gelu bf16", i))
     cases.append(("act_lut", f"gelu ({t},{d_w}) bf16",
                   {"x": normal((t, d_w), bf16, 2.0), "table": table_operands("gelu", dev),
                    "name": "gelu"}))
@@ -412,6 +414,23 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
                                                 torch.float32, rng, dev)
         cases.append((name, "x".join(map(str, dims)) + " fp32", inputs))
     return cases
+
+
+def stem_conv_inputs(rng, images: int = 1) -> list[tuple[str, dict]]:
+    """whisper-small's two stem convs as the encoder runs them, in bf16, with
+    the GELU fused: (label, conv2d inputs) for conv2 (d 768 -> 768, stride 2)
+    and conv1 (80 mels -> 768), over `images` frame arrays."""
+    w = configs.get_config(ENCODER_ARCH)
+    t, d_w, kw = w.frame_shape[0], w.d_model, w.stem_width
+
+    def normal(shape, std=1.0):
+        return torch.from_numpy(rng.normal(size=shape) * std).to("cuda", torch.bfloat16)
+
+    return [(label, {"x": normal((images, 1, t, cin)),
+                     "w": normal((1, kw, cin, d_w), (kw * cin) ** -0.5),
+                     "bias": normal((d_w,), 0.1), "stride": (1, stride), "padding": "SAME",
+                     "epilogue": "gelu"})
+            for label, cin, stride in (("conv2", d_w, w.stem_stride), ("conv1", w.n_mels, 1))]
 
 
 def library_call(name: str, i: dict):
@@ -662,21 +681,25 @@ def time_flash_plans(rng, timer) -> None:
 
 
 def check_row_invariance(cfg, failures: list) -> None:
-    """`anemm` and `sparse` in every dtype each takes: the first rows of one
-    512-row activation must come out bit-identical whatever the call's row
-    count (INVARIANCE_ROWS), at every main-path (K, N), the head and two
-    ragged shapes. A row's bits may not depend on the rows beside it: 8-row
-    decode against a 16- to 80-row verify window, a prefix hit's short
-    prefill against a cold one."""
+    """`anemm`, `sparse` and `palette` in every dtype each takes: the first
+    rows of one 512-row activation must come out bit-identical whatever the
+    call's row count (INVARIANCE_ROWS), at every main-path (K, N), the head
+    and two ragged shapes. A row's bits may not depend on the rows beside
+    it: 8-row decode against a 16- to 80-row verify window, a prefix hit's
+    short prefill against a cold one. `conv2d` in every dtype at whisper's
+    two stem convs (GELU fused): the first images of a 4-image call must
+    come out bit-identical in calls of 1 to 4 images."""
     rng = np.random.default_rng(5)
     shapes = [*matmul_shapes(cfg).items(), ("head", (cfg.d_model, cfg.padded_vocab))]
     shapes += [("ragged", kn) for kn in RAGGED_SHAPES]
     top = max(INVARIANCE_ROWS)
-    for name in ("anemm", "sparse"):
+    for name in ("anemm", "sparse", "palette"):
         spec = registry.get(name)
         for label, (k, n) in shapes:
             if name == "sparse":
                 k = -(-k // 16) * 16
+            if name == "palette":
+                k += k % 2
             w = torch.from_numpy(rng.normal(size=(k, n)) * k ** -0.5).to("cuda", torch.float32)
             packed = PACKED[name].pack(w) if name in PACKED else None
             for dtype in spec.dtypes:
@@ -695,20 +718,39 @@ def check_row_invariance(cfg, failures: list) -> None:
                 if not same:
                     failures.append(f"{name} {label} {k}->{n} {dtype_name(dtype)}: rows of a "
                                     f"{top}-row call differ at fewer rows ({diffs})")
+    conv = registry.get("conv2d")
+    images = 4
+    for label, stem in stem_conv_inputs(rng, images):
+        for dtype in conv.dtypes:
+            i = {k: v.to(dtype) if isinstance(v, torch.Tensor) else v for k, v in stem.items()}
+            full = conv.run_kernel(i)
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            diffs, same = {}, True
+            for b in range(1, images + 1):
+                out, want = conv.run_kernel({**i, "x": i["x"][:b]}), full[:b]
+                same = same and torch.equal(out.view(bits), want.view(bits))
+                diffs[b] = float((out.float() - want.float()).abs().max())
+            emit("row_invariance", kernel="conv2d", dtype=dtype_name(dtype),
+                 shape=f"stem {label} B={images}", rows=list(diffs),
+                 max_abs_diff=max(diffs.values()), by_rows=diffs, bit_identical=same)
+            if not same:
+                failures.append(f"conv2d stem {label} {dtype_name(dtype)}: the first images "
+                                f"of a {images}-image call differ in smaller calls ({diffs})")
 
 
 def time_matmul_plans(cfg, rng, timer) -> None:
     """The streaming loop's launch plans side by side: at every main-path
-    projection and each M of PLAN_ROWS, bf16, `anemm` and `sparse` with a
-    tile's chunks spread over a cluster and with one block walking them all
-    (the same bits). Timed only, through the wrappers with
+    projection and each M of PLAN_ROWS, bf16, `anemm`, `sparse` and
+    `palette` with a tile's chunks spread over a cluster and with one block
+    walking them all (the same bits). Timed only, through the wrappers with
     `common.launch_plan` swapped for the plan under test."""
     chosen = common.launch_plan
     bf16 = torch.bfloat16
     try:
         for label, (k, n) in matmul_shapes(cfg).items():
             w = torch.from_numpy(rng.normal(size=(k, n)) * k ** -0.5).to("cuda", torch.float32)
-            weights = {"anemm": {"b": w.to(bf16)}, "sparse": PACKED["sparse"].pack(w)}
+            weights = {"anemm": {"b": w.to(bf16)},
+                       **{name: form.pack(w) for name, form in PACKED.items()}}
             chunks = common.chunk_plan(k, n, bf16)
             for m in PLAN_ROWS:
                 a = torch.from_numpy(rng.normal(size=(m, k))).to("cuda", bf16)
@@ -725,6 +767,26 @@ def time_matmul_plans(cfg, rng, timer) -> None:
                          chunks=chunks._asdict(), plan=taken._asdict(), ms_by_split=ms)
     finally:
         common.launch_plan = chosen
+
+
+def time_stem_convs(rng, timer) -> None:
+    """Where a stem conv's time goes: the fused call (GELU at the output
+    port), the conv without an epilogue, and `anemm` on the implicit GEMM's
+    own (B*OH*OW, KW*Cin) x (KW*Cin, Cout) operands, with and without the
+    fused GELU: the gather's cost is conv minus GEMM, the epilogue's fused
+    minus unfused. Timed only."""
+    conv = registry.get("conv2d")
+    for label, i in stem_conv_inputs(rng):
+        x, w = i["x"], i["w"]
+        k, n = w.shape[0] * w.shape[1] * w.shape[2], w.shape[3]
+        rows = torch.from_numpy(rng.normal(size=(x.shape[2] // i["stride"][1], k))).to(
+            "cuda", x.dtype)
+        gemm_w = w.reshape(k, n)
+        emit("stem_conv_split", conv=label, m=rows.shape[0], k=k, n=n,
+             ms={"conv gelu": timer.device_ms(lambda: conv.run_kernel(i)),
+                 "conv": timer.device_ms(lambda: conv.run_kernel({**i, "epilogue": None})),
+                 "anemm gelu": timer.device_ms(lambda: anemm(rows, gemm_w, epilogue="gelu")),
+                 "anemm": timer.device_ms(lambda: anemm(rows, gemm_w))})
 
 
 def check_kernels(cfg, timer) -> dict:
@@ -873,6 +935,7 @@ def check_kernels(cfg, timer) -> dict:
     check_flash_bits(rng, failures)
     check_row_invariance(cfg, failures)
     time_matmul_plans(cfg, rng, timer)
+    time_stem_convs(rng, timer)
     # the fp32 head widens the bf16 unembed on every call (reference
     # layers.py:158-161): the copy's own device time
     unembed = torch.empty((cfg.d_model, cfg.padded_vocab), dtype=torch.bfloat16,
@@ -898,8 +961,9 @@ def compare_turn(label: str, cfg) -> None:
     replay, L2 flushed) and output digests of the matmul kernels at
     tinyllama's projections on 8, 40, 80 and 512 rows, the fp32 head on 1
     and 8 and whisper-small's two stem convs (inputs from a fixed seed, so
-    equal digests mean equal bits), then the fp16 and sparse serves with one
-    profiled round each. It uses only what every checkout of the port has."""
+    equal digests mean equal bits), then the fp16, sparse and int4_palette
+    serves with one profiled round each. It uses only what every checkout of
+    the port has."""
     rng = np.random.default_rng(11)
     timer = Timer()
     bf16 = torch.bfloat16
@@ -924,15 +988,9 @@ def compare_turn(label: str, cfg) -> None:
         for name, form in PACKED.items():
             i = {"a": a, **form.pack(w)}
             record(name, shape, lambda: registry.get(name).run_kernel(i))
-    ws = configs.get_config(ENCODER_ARCH)
-    t, d_w, kw = ws.frame_shape[0], ws.d_model, ws.stem_width
-    for shape, cin, stride in (("stem conv2", d_w, ws.stem_stride), ("stem conv1", ws.n_mels, 1)):
-        i = {"x": normal((1, 1, t, cin), bf16),
-             "w": normal((1, kw, cin, d_w), bf16, (kw * cin) ** -0.5),
-             "bias": normal((d_w,), bf16, 0.1), "stride": (1, stride), "padding": "SAME",
-             "epilogue": "gelu"}
-        record("conv2d", shape, lambda: registry.get("conv2d").run_kernel(i))
-    for form in ("fp16", "sparse"):
+    for conv, i in stem_conv_inputs(rng):
+        record("conv2d", f"stem {conv}", lambda: registry.get("conv2d").run_kernel(i))
+    for form in ("fp16", "sparse", "int4_palette"):
         emit("turn_serve", turn=label, weight_form=form)
         serve_main_path(form)
         profile_serve(form, serve_argv(cfg, 1, form))

@@ -47,9 +47,9 @@ extern "C" int anemm_launch(const void* a, const void* b, const void* scale, con
   };
   if (dtype == kF32)
     return split != 1 ? cudaErrorInvalidValue
-                      : launch_ane<float>(tile::dense_a<float>(a, M, K),
-                                          tile::dense_b<float>(b, K, N), sc, bi, lu, ane_mode,
-                                          out, M, N, K, s);
+                      : launch_ane(tile::DenseA{static_cast<const float*>(a), M, K},
+                                   tile::DenseB{static_cast<const float*>(b), K, N}, sc, bi,
+                                   lu, ane_mode, out, M, N, K, s);
   if (dtype == kBF16) return run(__nv_bfloat16{});
   if (dtype == kF16) return run(__half{});
   return cudaErrorInvalidValue;

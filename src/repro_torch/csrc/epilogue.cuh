@@ -44,17 +44,14 @@ int with_ane(const float* scale, const float* bias, const float* lut, int ane_mo
   return run(AneEpilogue<T, false>{scale, bias, nullptr, ane_mode});
 }
 
-// Launch the blocked tile loop for A producer `ap` and B producer `prod`
-// with the ANE epilogue in dtype T.
-template <typename T, typename AP, typename P>
+// Launch the blocked fp32 tile loop for A producer `ap` and B producer
+// `prod` with the ANE epilogue.
+template <typename AP, typename P>
 int launch_ane(const AP& ap, const P& prod, const float* scale, const float* bias,
                const float* lut, int ane_mode, void* out, int M, int N, int K,
                cudaStream_t s) {
-  return with_ane<T>(scale, bias, lut, ane_mode, [&](const auto& epi) {
-    if constexpr (std::is_same_v<T, float>)
-      return tile::launch_f32(ap, prod, epi, out, M, N, K, s);
-    else
-      return tile::launch_mma<T>(ap, prod, epi, out, M, N, K, s);
+  return with_ane<float>(scale, bias, lut, ane_mode, [&](const auto& epi) {
+    return tile::launch_f32(ap, prod, epi, out, M, N, K, s);
   });
 }
 

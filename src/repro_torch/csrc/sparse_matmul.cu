@@ -45,20 +45,20 @@ struct SparseB {
 
   __device__ void prepare(Smem&) const {}
 
-  template <typename T, int ROWS, int COLS, int LDB, int THREADS>
-  __device__ void load(T* __restrict__ dst, const Smem&, int k0, int n0) const {
+  template <int ROWS, int COLS, int LDB, int THREADS>
+  __device__ void load(float* __restrict__ dst, const Smem&, int k0, int n0) const {
     const int k2 = K / 2, p0 = k0 / 2;
     for (int i = threadIdx.x; i < (ROWS / 2) * COLS; i += THREADS) {
       const int r = i / COLS, c = i % COLS;
       const int p = p0 + r, gn = n0 + c;
-      T v = from_f32<T>(0.0f);
+      float v = 0.0f;
       int odd = 0;
       if (p < k2 && gn < N) {
-        v = from_f32<T>(to_f32<V>(values[(size_t)p * N + gn]));
+        v = to_f32<V>(values[(size_t)p * N + gn]);
         odd = (selector[(size_t)(p >> 3) * N + gn] >> (p & 7)) & 1;
       }
       dst[(2 * r + odd) * LDB + c] = v;
-      dst[(2 * r + 1 - odd) * LDB + c] = from_f32<T>(0.0f);
+      dst[(2 * r + 1 - odd) * LDB + c] = 0.0f;
     }
   }
 };
@@ -75,6 +75,9 @@ struct SparseW {
 
   static constexpr int kValueBytes = st::BK / 2 * st::ROW * 2;
   static constexpr int kStageBytes = kValueBytes + st::BK / 16 * st::BN;
+  static constexpr int kSharedBytes = 0;
+
+  __device__ __forceinline__ void prepare(unsigned char*) const {}
 
   __device__ __forceinline__ void issue(unsigned char* stage, int k0, int n0) const {
     st::stage<V, st::BK / 2>(reinterpret_cast<V*>(stage), values, N, K / 2, N, k0 / 2, n0,
@@ -99,8 +102,9 @@ struct SparseW {
 
   // a0/a1: pair kk/2 + q at columns nw + g / nw + g + 8; a2/a3: pair kk/2 + 4 + q
   template <typename T>
-  __device__ __forceinline__ void fragment(uint32_t (&a)[4], const unsigned char* stage, int kk,
-                                           int nw, int lane) const {
+  __device__ __forceinline__ void fragment(uint32_t (&a)[4], const unsigned char* stage,
+                                           const unsigned char*, int kk, int nw,
+                                           int lane) const {
     const V* v = reinterpret_cast<const V*>(stage);
     const uint8_t* sel = stage + kValueBytes + (kk / 16) * st::BN;
     const int g = lane / 4, q = lane % 4;
@@ -126,7 +130,7 @@ int launch_values(const void* a, const void* values, const void* selector, void*
   const auto* sel = static_cast<const uint8_t*>(selector);
   if (dtype == kF32)
     return split != 1 ? cudaErrorInvalidValue
-                      : tile::launch(SparseB<V>{v, sel, K, N}, a, out, M, N, K, dtype, stream);
+                      : tile::launch(SparseB<V>{v, sel, K, N}, a, out, M, N, K, stream);
   if (dtype != kBF16) return cudaErrorInvalidValue;
   const SparseW<V> wp{v, sel, K, N,
                       (N % 8 == 0) && (reinterpret_cast<uintptr_t>(values) & 15u) == 0,

@@ -2,36 +2,41 @@
 // fp32 accumulator and an epilogue functor, rounded once to the activation's
 // dtype T. Two loops live here.
 //
-// The streaming loop (`matmul_stream`, namespace `stream`): bf16 / fp16
-// anemm and bf16 sparse_matmul, the matmuls of the serve path. It replaces
-// the TPU kernels' blocked product (src/repro/kernels/anemm/anemm.py:69,
-// src/repro/kernels/sparse/sparse_matmul.py:85), whose sequential K grid
-// axis carries `acc += dot(chunk)` in VMEM scratch.
+// The streaming loop (`matmul_stream`, namespace `stream`): every 16-bit
+// product of the port. bf16 / fp16 anemm, bf16 sparse_matmul and
+// palette_matmul (their weight producers in their own sources) and bf16 /
+// fp16 conv2d (its activation producer gathers the implicit GEMM's rows).
+// It replaces the TPU kernels' blocked products
+// (src/repro/kernels/anemm/anemm.py:69, sparse/sparse_matmul.py:85,
+// palette/palette_matmul.py:88, conv/conv2d.py:95), whose sequential K grid
+// axis (or tap loop) carries `acc += dot(chunk)` in VMEM scratch.
 //   * The weight's N is the MMA's 16-row side (Cᵀ = Bᵀ·Aᵀ): a block owns BN =
 //     64 weight columns, 16 per warp, against BM = 8, 16, 32 or 64 activation
 //     rows, the MMA's narrow side, so a decode step (M = 8) multiplies no
-//     padded rows. mma.sync.m16n8k16 with fp32 accumulators, fed by
-//     ldmatrix.trans from the staged (K, N) weight rows and ldmatrix from the
-//     staged activation rows.
-//   * Each 64-deep K step's weight tile (or sparse_matmul's raw values and
-//     selector bytes) and activation slice stream through a four-stage ring
-//     of 16-byte cp.async copies into 128-byte rows whose 16-byte chunks are
+//     padded rows. mma.sync.m16n8k16 with fp32 accumulators, fed by the
+//     weight producer's A fragments and by ldmatrix from the staged
+//     activation rows.
+//   * Each 64-deep K step's weight share (a dense tile, sparse_matmul's raw
+//     values and selector bytes, palette_matmul's packed nibbles) and
+//     activation slice stream through a four-stage ring of 16-byte cp.async
+//     copies, the activation into 128-byte rows whose 16-byte chunks are
 //     swizzled by row (conflict-free ldmatrix without padding). All four
 //     stages are requested before the first MMA, and a slot is refilled as
 //     soon as its step is consumed, so four steps are in flight while one
-//     computes. A weight producer turns its staged tile into the MMA's A
+//     computes. A weight producer turns its staged share into the MMA's A
 //     fragments (dense: one ldmatrix.trans; sparse: the 1:2 pairs rebuilt in
-//     registers).
+//     registers; palette: one byte and one table entry a register).
 //   * What bounds it on an H100: at decode (M = 8 lanes) the weight is read
 //     once for 8 rows, ~2 operations a byte, so bytes (3.35 TB/s), and the
 //     loop's job is to have the whole weight requested at once: a tile's 8
 //     chunks go to 8 blocks, a 4-stage ring holds a 2048-deep chunk whole,
 //     and 6 blocks of 36 KB fit an SM, so tinyllama's widest projection (704
 //     blocks) runs in one wave. 128-column blocks, 2 or 4 chunks and an L2
-//     prefetch hint measured no faster there (PERF.md). At prefill (M = 512)
-//     a 64x64 tile does 32 operations a staged byte, so the tensor cores'
-//     rate bounds it (989 TFLOP/s dense bf16), of which mma.sync from 4-warp
-//     blocks reaches a fraction; a wgmma body is later work.
+//     prefetch hint measured no faster there (PERF.md). At prefill (M = 512,
+//     or a whisper stem conv's 1,500 output pixels) a 64x64 tile does 32
+//     operations a staged byte, so the tensor cores' rate bounds it (989
+//     TFLOP/s dense bf16), of which mma.sync from 4-warp blocks reaches a
+//     fraction; a wgmma body is later work.
 //   * A row's bits do not depend on M. K is cut into chunks by the wrapper's
 //     plan, a function of (K, N, dtype) alone (kernels/common.py,
 //     `chunk_plan`): at most 8 chunks of a multiple of 64. Each chunk's
@@ -49,37 +54,54 @@
 //     past the matrix are zero-filled in the ring (copies of 0 bytes), and
 //     rows that are not 16-byte aligned are staged element by element.
 //
-// The blocked loop (`matmul_mma`, `matmul_f32`): the first port's loop,
-// kept as it was for palette_matmul and conv2d (16-bit, WMMA) and for every
-// fp32 product (true fp32 FMA, never TF32): each block owns one 64x64
-// output tile and loops over all of K itself, without pipelining, so an
-// element's sum order is the K order whatever M is.
+// The blocked loop (`matmul_f32`): every fp32 product (the logits head of
+// each weight form, fp32 convs), true fp32 FMA, never TF32. Each block owns
+// one 64x64 output tile and loops over all of K itself, without
+// pipelining, so an element's sum is one fmaf chain in K order whatever M
+// is.
 //
-// An A-tile producer AP of the blocked loop provides
-//   template <int ROWS, int COLS, int LDA, int THREADS>
-//   __device__ void load(T* dst, int m0, int k0) const;      (16-bit loop)
-//     write the ROWS x COLS tile of A at (m0, k0) into dst (leading
-//     dimension LDA), zero outside the matrix; k0 is a multiple of 64;
-//   __device__ float at(int m, int k) const;                  (fp32 loop)
+// An A producer AP of the blocked loop provides
+//   __device__ float at(int m, int k) const;
 //     one element of A, zero outside the matrix.
 // DenseA below reads a row-major matrix.
 //
 // A B-tile producer P of the blocked loop provides
 //   struct Smem;                                  its shared-memory state
 //   __device__ void prepare(Smem&) const;         fill it (all threads)
-//   template <typename T, int ROWS, int COLS, int LDB, int THREADS>
-//   __device__ void load(T* dst, const Smem&, int k0, int n0) const;
-//     write the dense ROWS x COLS tile of B at (k0, n0) into dst (leading
-//     dimension LDB), already in the activation's dtype T, zero outside the
-//     matrix; k0 is a multiple of 16.
+//   template <int ROWS, int COLS, int LDB, int THREADS>
+//   __device__ void load(float* dst, const Smem&, int k0, int n0) const;
+//     write the dense fp32 ROWS x COLS tile of B at (k0, n0) into dst
+//     (leading dimension LDB), zero outside the matrix; k0 is a multiple of
+//     16.
+//
+// An activation producer X of the streaming loop provides
+//   template <int BM>
+//   __device__ R start(int m0) const;
+//     this thread's state for the block's rows m0..m0+BM-1, made once a
+//     block before the first step (DenseX: m0 itself; conv2d: each owned
+//     row's pixel, decoded once);
+//   template <int BM>
+//   __device__ void issue(unsigned char* stage, const R& rows, int k0) const;
+//     start the copies of the K step at k0 (a multiple of 64): BM rows of 64
+//     16-bit values of A (M, K), K k0..k0+63, into the stage's swizzled
+//     128-byte rows (row r, element c at `swz(r, c)`), zero outside the
+//     matrix (rows past M, K past K). The loop calls it from all THREADS
+//     threads; a copy may be a cp.async or a plain shared store.
 // A weight producer W of the streaming loop provides
 //   static constexpr int kStageBytes;             its share of a ring stage
+//   static constexpr int kSharedBytes;            its block-wide shared state
+//   __device__ void prepare(unsigned char* shared) const;
+//     fill that state (all threads, once the ring's first copies are
+//     issued; read after the first step's barrier);
 //   __device__ void issue(unsigned char* stage, int k0, int n0) const;
 //     start the copies of the K step at k0 (a multiple of 64), columns
-//     n0..n0+63, into the stage, zero outside the matrix;
+//     n0..n0+63, into the stage; what lies outside the matrix may stage as
+//     anything finite (the activation's zeros cancel it, or its column is
+//     not stored);
 //   template <typename T>
 //   __device__ void fragment(uint32_t (&a)[4], const unsigned char* stage,
-//                            int kk, int nw, int lane) const;
+//                            const unsigned char* shared, int kk, int nw,
+//                            int lane) const;
 //     the A fragment (Wᵀ rows nw..nw+15, K kk..kk+15 of the step) in T.
 // An epilogue E provides
 //   __device__ float operator()(float acc, int n) const;
@@ -87,7 +109,6 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <mma.h>
 
 #include <type_traits>
 
@@ -99,92 +120,40 @@ namespace tile {
 // fp32: 64x64 output tile, 256 threads of 4x4 outputs, K steps of 16
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
 constexpr int F_LDB = F_BN + 4;
-// 16-bit: 64x64 output tile, 4 warps of 32x32 WMMA, K steps of 64
-constexpr int H_BM = 64, H_BN = 64, H_BK = 64, H_THREADS = 128;
-constexpr int H_LDA = H_BK + 8;  // 144-byte rows: 16-byte aligned, banks skewed
-constexpr int H_LDB = H_BN + 8;
-constexpr int H_LDC = H_BN + 4;
-constexpr int H_VEC = 8;  // 16-bit elements per 16-byte load
 
 // the stored value is the accumulator itself
 struct Identity {
   __device__ float operator()(float acc, int) const { return acc; }
 };
 
-// ROWS x COLS tile of a row-major (R x Cn, leading dim ld) 16-bit matrix at
-// (r0, c0) into shared memory, zero-filled outside the matrix; 16-byte
-// vectors where `vec_ok`
-template <typename T, int ROWS, int COLS, int LDD, int THREADS>
-__device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restrict__ src, int ld,
-                                          int R, int Cn, int r0, int c0, bool vec_ok) {
-  constexpr int CPR = COLS / H_VEC;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * H_VEC;
-    const int gr = r0 + r, gc = c0 + c;
-    T* d = dst + r * LDD + c;
-    if (vec_ok && gr < R && gc + H_VEC <= Cn) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src + (size_t)gr * ld + gc);
-    } else {
-#pragma unroll
-      for (int e = 0; e < H_VEC; ++e)
-        d[e] = (gr < R && gc + e < Cn) ? src[(size_t)gr * ld + gc + e] : from_f32<T>(0.0f);
-    }
-  }
-}
-
-// A as a dense row-major (M, K) matrix in the activation's dtype
-template <typename T>
+// A as a dense row-major (M, K) fp32 matrix
 struct DenseA {
-  const T* __restrict__ a;
+  const float* __restrict__ a;
   int M, K;
-  int vec;  // K % 8 == 0 and a 16-byte aligned
 
-  template <int ROWS, int COLS, int LDA, int THREADS>
-  __device__ __forceinline__ void load(T* __restrict__ dst, int m0, int k0) const {
-    load_tile<T, ROWS, COLS, LDA, THREADS>(dst, a, K, M, K, m0, k0, vec);
-  }
   __device__ __forceinline__ float at(int m, int k) const {
     return (m < M && k < K) ? a[(size_t)m * K + k] : 0.0f;
   }
 };
 
-template <typename T>
-DenseA<T> dense_a(const void* a, int M, int K) {
-  return {static_cast<const T*>(a), M, K,
-          (K % H_VEC == 0) && (reinterpret_cast<uintptr_t>(a) & 15u) == 0};
-}
-
-// B as a dense row-major (K, N) matrix in the activation's dtype
-template <typename T>
+// B as a dense row-major (K, N) fp32 matrix
 struct DenseB {
-  const T* __restrict__ b;
+  const float* __restrict__ b;
   int K, N;
-  int vec;  // N % 8 == 0 and b 16-byte aligned
 
   struct Smem {};
 
   __device__ void prepare(Smem&) const {}
 
-  template <typename U, int ROWS, int COLS, int LDB, int THREADS>
-  __device__ void load(U* __restrict__ dst, const Smem&, int k0, int n0) const {
-    static_assert(std::is_same_v<T, U>, "dense B is stored in the activation's dtype");
-    if constexpr (sizeof(T) == 2) {
-      load_tile<T, ROWS, COLS, LDB, THREADS>(dst, b, N, K, N, k0, n0, vec);
-    } else {
-      for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
-        const int r = i / COLS, c = i % COLS;
-        const int gk = k0 + r, gn = n0 + c;
-        dst[r * LDB + c] = (gk < K && gn < N) ? b[(size_t)gk * N + gn] : 0.0f;
-      }
+  template <int ROWS, int COLS, int LDB, int THREADS>
+  __device__ void load(float* __restrict__ dst, const Smem&, int k0, int n0) const {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const int gk = k0 + r, gn = n0 + c;
+      dst[r * LDB + c] = (gk < K && gn < N) ? b[(size_t)gk * N + gn] : 0.0f;
     }
   }
 };
-
-template <typename T>
-DenseB<T> dense_b(const void* b, int K, int N) {
-  return {static_cast<const T*>(b), K, N,
-          (N % H_VEC == 0) && (reinterpret_cast<uintptr_t>(b) & 15u) == 0};
-}
 
 template <typename P>
 __device__ __forceinline__ void prepare(const P& prod, typename P::Smem& ps) {
@@ -216,7 +185,7 @@ __global__ void __launch_bounds__(F_THREADS)
       const int r = i / F_BK, c = i % F_BK;
       As[c][r] = ap.at(m0 + r, k0 + c);
     }
-    prod.template load<float, F_BK, F_BN, F_LDB, F_THREADS>(Bs, ps, k0, n0);
+    prod.template load<F_BK, F_BN, F_LDB, F_THREADS>(Bs, ps, k0, n0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < F_BK; ++kk) {
@@ -243,64 +212,6 @@ __global__ void __launch_bounds__(F_THREADS)
   }
 }
 
-// 6 blocks of 35 KB shared memory fill an SM; the register cap that
-// __launch_bounds__ derives from it (80) keeps the 6 resident, so a 704-block
-// grid (M=512 x N=5632) still runs in one wave on 132 SMs
-constexpr int H_MIN_BLOCKS = 6;
-
-template <typename T, typename AP, typename P, typename E>
-__global__ void __launch_bounds__(H_THREADS, H_MIN_BLOCKS)
-    matmul_mma(const AP ap, const P prod, const E epi, T* __restrict__ C, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(128) T As[H_BM * H_LDA];
-  __shared__ __align__(128) T Bs[H_BK * H_LDB];
-  __shared__ __align__(128) float Cs[H_BM * H_LDC];
-  __shared__ typename P::Smem ps;
-  prepare(prod, ps);
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * H_BM, n0 = blockIdx.x * H_BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += H_BK) {
-    ap.template load<H_BM, H_BK, H_LDA, H_THREADS>(As, m0, k0);
-    prod.template load<T, H_BK, H_BN, H_LDB, H_THREADS>(Bs, ps, k0, n0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < H_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * H_LDA + kk, H_LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Bs + kk * H_LDB + wn + 16 * j, H_LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * H_LDC + wn + 16 * j, acc[i][j], H_LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  const int rows = min(H_BM, M - m0);
-  for (int i = threadIdx.x; i < rows * H_BN; i += H_THREADS) {
-    const int r = i / H_BN, c = i % H_BN;
-    const int gn = n0 + c;
-    if (gn < N) C[(size_t)(m0 + r) * N + gn] = from_f32<T>(epi(Cs[r * H_LDC + c], gn));
-  }
-}
-
 template <typename AP, typename P, typename E>
 int launch_f32(const AP& ap, const P& prod, const E& epi, void* out, int M, int N, int K,
                cudaStream_t s) {
@@ -310,26 +221,12 @@ int launch_f32(const AP& ap, const P& prod, const E& epi, void* out, int M, int 
   return cudaGetLastError();
 }
 
-template <typename T, typename AP, typename P, typename E>
-int launch_mma(const AP& ap, const P& prod, const E& epi, void* out, int M, int N, int K,
-               cudaStream_t s) {
-  dim3 grid((N + H_BN - 1) / H_BN, (M + H_BM - 1) / H_BM);
-  matmul_mma<T, AP, P, E><<<grid, H_THREADS, 0, s>>>(ap, prod, epi, static_cast<T*>(out), M,
-                                                     N, K);
-  return cudaGetLastError();
-}
-
-// Launch the loop with a dense A and no epilogue for an fp32 or bf16
-// activation (dtype code) on `stream`; returns the launch's CUDA error.
+// Launch the blocked loop for a dense fp32 A (M, K) and B producer `prod`,
+// no epilogue, on `stream`; returns the launch's CUDA error.
 template <typename P>
-int launch(const P& prod, const void* a, void* out, int M, int N, int K, int dtype,
-           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_f32(dense_a<float>(a, M, K), prod, Identity{}, out, M, N, K, s);
-  if (dtype == kBF16)
-    return launch_mma<__nv_bfloat16>(dense_a<__nv_bfloat16>(a, M, K), prod, Identity{}, out, M,
-                                     N, K, s);
-  return cudaErrorInvalidValue;
+int launch(const P& prod, const void* a, void* out, int M, int N, int K, void* stream) {
+  return launch_f32(DenseA{static_cast<const float*>(a), M, K}, prod, Identity{}, out, M, N, K,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -364,10 +261,11 @@ __host__ __device__ constexpr int stage_bytes() {
   return (x_bytes<BM>() + W::kStageBytes + 127) / 128 * 128;
 }
 
-// the ring, reused after the K loop for the fp32 output tile (BM x LDO)
+// the ring and the weight producer's block-wide state after it; the ring is
+// reused after the K loop for the fp32 output tile (BM x LDO)
 template <int BM, typename W>
 constexpr int smem_bytes() {
-  constexpr int ring = STAGES * stage_bytes<BM, W>(), out = BM * LDO * 4;
+  constexpr int ring = STAGES * stage_bytes<BM, W>() + W::kSharedBytes, out = BM * LDO * 4;
   return ring > out ? ring : out;
 }
 
@@ -394,12 +292,18 @@ __device__ __forceinline__ void stage(T* __restrict__ dst, const T* __restrict__
   }
 }
 
-// the activation: a dense row-major (M, K) matrix in T
+// the activation: a dense row-major (M, K) matrix in T; a thread's state is
+// the block's first row
 template <typename T>
 struct DenseX {
   const T* __restrict__ a;
   int M, K;
   bool vec;
+
+  template <int BM>
+  __device__ __forceinline__ int start(int m0) const {
+    return m0;
+  }
 
   template <int BM>
   __device__ __forceinline__ void issue(unsigned char* st, int m0, int k0) const {
@@ -422,14 +326,18 @@ struct DenseW {
   bool vec;
 
   static constexpr int kStageBytes = BK * ROW * 2;
+  static constexpr int kSharedBytes = 0;
+
+  __device__ __forceinline__ void prepare(unsigned char*) const {}
 
   __device__ __forceinline__ void issue(unsigned char* st, int k0, int n0) const {
     stage<T, BK>(reinterpret_cast<T*>(st), w, N, K, N, k0, n0, vec);
   }
 
   template <typename U>
-  __device__ __forceinline__ void fragment(uint32_t (&a)[4], const unsigned char* st, int kk,
-                                           int nw, int lane) const {
+  __device__ __forceinline__ void fragment(uint32_t (&a)[4], const unsigned char* st,
+                                           const unsigned char*, int kk, int nw,
+                                           int lane) const {
     static_assert(std::is_same_v<T, U>, "a dense weight is stored in the activation's dtype");
     // matrices (n 0-7 | 8-15) x (k 0-7 | 8-15) of Wᵀ: rows k of the stage
     const int k = kk + (lane & 7) + ((lane >> 4) << 3), n = nw + (((lane >> 3) & 1) << 3);
@@ -481,10 +389,11 @@ __global__ void __launch_bounds__(THREADS)
   const int ke = split > 1 ? min(K, kb + kc) : K;
   const int steps = (ke - kb + BK - 1) / BK, chunk_steps = kc / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = warp * 16;
+  const auto rows = xp.template start<BM>(m0);
 
   auto issue = [&](int s) {
     unsigned char* st = smem + (s % STAGES) * SB;
-    xp.template issue<BM>(st, m0, kb + s * BK);
+    xp.template issue<BM>(st, rows, kb + s * BK);
     wp.issue(st + XB, kb + s * BK, n0);
   };
 #pragma unroll
@@ -492,6 +401,9 @@ __global__ void __launch_bounds__(THREADS)
     if (s < steps) issue(s);
     cp_async_commit();
   }
+  // the weight producer's state, built while the ring's copies are in flight
+  unsigned char* const shared = smem + STAGES * SB;
+  wp.prepare(shared);
 
   float acc[NJ][4], total[NJ][4];
 #pragma unroll
@@ -501,12 +413,12 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int s = 0; s < steps; ++s) {
     cp_async_wait<STAGES - 1>();  // step s landed (this thread's copies)
-    __syncthreads();              // ... everyone's
+    __syncthreads();              // ... everyone's (and, at s = 0, wp.prepare's state)
     const unsigned char* st = smem + (s % STAGES) * SB;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[4], b[NJ][2];
-      wp.template fragment<T>(a, st + XB, kk, nw, lane);
+      wp.template fragment<T>(a, st + XB, shared, kk, nw, lane);
       x_fragments<BM>(b, smem_addr(st), kk, lane);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) mma16816<T>(acc[j], a, b[j][0], b[j][1]);

@@ -1,6 +1,7 @@
 """Shared by the matmul kernel wrappers: the packed kernels' operand checks,
 and the plan of the streaming tile loop (`csrc/tile_matmul.cuh`, namespace
-`tile::stream`) that bf16 / fp16 `anemm` and bf16 `sparse` run.
+`tile::stream`) that every 16-bit product runs: bf16 / fp16 `anemm` and
+`conv2d`, bf16 `sparse` and `palette`.
 
 The plan has two halves. `chunk_plan` fixes the sum order: K cut into at
 most `MAX_CHUNKS` chunks, each a multiple of `STREAM_BK`; a chunk's partial

@@ -1,22 +1,27 @@
 """conv2d: the hand-written CUDA NHWC convolution with its fused epilogue.
 
 Replaces the Pallas TPU kernel `src/repro/kernels/conv/conv2d.py:95`; the
-kernel is `src/repro_torch/csrc/conv2d.cu` (an implicit GEMM on the shared
-tile loop), which also says what bounds it on an H100. `conv2d(x, w, bias)`
-convolves x (B, H, W, Cin) with w (KH, KW, Cin, Cout) at `stride` with SAME
-or VALID padding, accumulates in fp32, adds the bias, saturates in ANE mode
-and, with `epilogue=` (a table name of `core.numerics`), evaluates that
+kernel is `src/repro_torch/csrc/conv2d.cu`. `conv2d(x, w, bias)` convolves
+x (B, H, W, Cin) with w (KH, KW, Cin, Cout) at `stride` with SAME or VALID
+padding, accumulates in fp32, adds the bias, saturates in ANE mode and,
+with `epilogue=` (a table name of `core.numerics`), evaluates that
 activation at the output port; one rounding to x's dtype.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version `conv2d_ref`.
+version `conv2d_ref`. The kernel is an implicit GEMM, (B*OH*OW, KH*KW*Cin)
+x (KH*KW*Cin, Cout): bf16 / fp16 on the streaming tile loop, the image's
+rows gathered into its ring, K summed in `anemm`'s chunks
+(`common.chunk_plan`, never a function of B, so an image's bits do not
+depend on the batch) over `common.launch_plan`'s blocks; whisper's stem
+convs are bound by the tensor cores (conv2) or their bytes (conv1). fp32
+runs the blocked fp32 loop, one fmaf chain over K.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import native
+from repro_torch.kernels import common, native
 from repro_torch.kernels.act_lut.ops import table_operands
 from repro_torch.kernels.conv.ref import conv2d_ref, out_extent, pad_explicit
 
@@ -55,12 +60,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *
     out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    m, k = b * oh * ow, kh * kw * cin
+    chunks = common.chunk_plan(k, cout, x.dtype)
+    plan = common.launch_plan(m, cout, chunks)
     with torch.cuda.device(x.device):
         native.launch(
             "conv2d", x.data_ptr(), w.data_ptr(),
             None if bias32 is None else bias32.data_ptr(),
             None if table is None else table.data_ptr(), out.data_ptr(),
             b, h, wd, cin, cout, kh, kw, sh, sw, ph[0], pw[0], oh, ow,
-            native.dtype_code(x.dtype), int(ane_mode),
+            native.dtype_code(x.dtype), int(ane_mode), chunks.kc, plan.bm, plan.split,
             torch.cuda.current_stream(x.device).cuda_stream)
     return out

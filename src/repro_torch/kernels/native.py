@@ -62,7 +62,7 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "paged_decode_attention": ("paged_decode_attention.cu", "paged_decode_attention_launch",
                                [_P] * 7 + [_I] * 6 + [_I64, _I64, _I, _F, _I, _P]),
     "palette": ("palette_matmul.cu", "palette_matmul_launch",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sparse": ("sparse_matmul.cu", "sparse_matmul_launch",
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # one source, two entry points: the chain and the tree verify/accept
@@ -70,7 +70,7 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "specdec_tree": ("specdec.cu", "specdec_tree_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "act_lut": ("act_lut.cu", "act_lut_launch", [_P, _P, _P, _I64, _I, _I, _P]),
-    "conv2d": ("conv2d.cu", "conv2d_launch", [_P] * 5 + [_I] * 15 + [_P]),
+    "conv2d": ("conv2d.cu", "conv2d_launch", [_P] * 5 + [_I] * 18 + [_P]),
     # one source, two entry points: the avg and the max window reduction
     "avg_pool": ("pool.cu", "avg_pool_launch", [_P, _P] + [_I] * 12 + [_F, _I, _P]),
     "max_pool": ("pool.cu", "max_pool_launch", [_P, _P] + [_I] * 12 + [_F, _I, _P]),

@@ -2,10 +2,10 @@
 
 Packers: the port's `pack_pair_sparse` is bit-identical to the reference's;
 its `pack_kn` starts from a bit-identical quantile codebook and gives the
-reference's nibble planes, with each Lloyd codebook entry within 2 float32
-ulp of the reference's (the port sums a code's members in float64 and rounds
-once, numpy sums them pairwise in float32). Both hold on the registry shapes
-and on every matmul of smoke tinyllama.
+reference's nibble planes and Lloyd codebook bit for bit (each mean taken in
+numpy's float32 summation order, `pairwise.grouped_means`, itself held
+against `np.mean` here). Both hold on the registry shapes and on every
+matmul of smoke tinyllama.
 
 Model: the reference's smoke tinyllama parameters are packed by the
 reference (`compress_model_params`) and bridged into the port, payload bit
@@ -43,6 +43,7 @@ from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
 from repro_torch.kernels.palette.palette_matmul import pack_kn
+from repro_torch.kernels.palette.pairwise import grouped_means
 from repro_torch.kernels.sparse.sparse_matmul import pack_pair_sparse
 from repro_torch.launch import serve
 from repro_torch.launch.scheduler import ContinuousSchedule, Request, merge_prefill_caches
@@ -142,8 +143,7 @@ def test_pack_kn_quantile_start_is_bit_identical(source):
 
 @pytest.mark.parametrize("source", ["registry", "smoke"])
 def test_pack_kn_matches_reference(source):
-    """iters=4 (the serve path's): identical nibble planes, codebook within
-    2 ulp."""
+    """iters=4 (the serve path's): identical nibble planes and codebook."""
     mats = _registry_matrices("palette") if source == "registry" else _smoke_matrices()
     for w in mats:
         packed, lut = jpack_kn(w, iters=4)
@@ -153,10 +153,52 @@ def test_pack_kn_matches_reference(source):
         np.testing.assert_array_equal(tp.numpy(), packed)
 
 
+# every leaf shape of numpy's pairwise sum, and one, two and nine buffer
+# pieces with a partial last piece
+MEAN_LENGTHS = tuple(range(1, 301)) + (8191, 8192, 8193, 16385, 70001)
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("n", MEAN_LENGTHS)
+def test_grouped_means_equal_numpy_mean(n):
+    """One group: the mean's bits equal `np.mean` of the float32 array for
+    normal draws, draws over ten decades, signed zeros among equal values,
+    all negative zeros and one value repeated."""
+    rng = np.random.default_rng(n)
+    draws = [rng.normal(size=n),
+             rng.normal(size=n) * 10.0 ** rng.integers(-5, 5, size=n),
+             rng.choice([0.0, -0.0, 0.1, 0.1, -3.0], size=n),
+             np.full(n, -0.0),
+             np.full(n, 0.1)]
+    for a in draws:
+        a = a.astype(np.float32)
+        got = grouped_means(torch.from_numpy(a), [n])
+        assert got.dtype == np.float32 and got.shape == (1,)
+        assert _bits(got[0]) == _bits(a.mean()), (n, a[:4])
+
+
+def test_grouped_means_take_every_group_at_once():
+    """Many groups of one tensor, empty ones among them (NaN), each equal
+    to `np.mean` of its own slice."""
+    sizes = [0, 3, 8192, 20000, 1, 129, 16384, 0, 77, 9000, 5, 200, 300, 8, 7, 70001]
+    a = np.random.default_rng(7).normal(size=sum(sizes)).astype(np.float32)
+    got = grouped_means(torch.from_numpy(a), sizes)
+    start = 0
+    for g, size in enumerate(sizes):
+        if size:
+            assert _bits(got[g]) == _bits(a[start:start + size].mean()), (g, size)
+        else:
+            assert np.isnan(got[g])
+        start += size
+
+
 @pytest.mark.parametrize("form", FORMS)
 def test_compress_census_and_payloads_match_reference(form):
     """The port packs the bridged dense parameters itself: the same leaves
-    pack, with the reference's payloads (palette codebooks within 2 ulp)."""
+    pack, with the reference's payloads bit for bit."""
     tcfg = _configs("float32")[1]
     dense = params_from_numpy(jax.tree.map(np.asarray, _jparams("float32")), tcfg, "cpu")
     ours = compress_model_params(dense, form)

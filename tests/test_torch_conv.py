@@ -22,7 +22,7 @@ from repro.kernels import registry as jreg
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import numerics
 from repro_torch.core.dispatch import KernelDispatcher
-from repro_torch.kernels import native
+from repro_torch.kernels import common, native
 from repro_torch.kernels import registry as treg
 from repro_torch.kernels.act_lut.act_lut import act_lut
 from repro_torch.kernels.act_lut.ops import lut_activation, table_operands
@@ -314,3 +314,39 @@ def test_cuda_fused_epilogues_bit_identical(dtype, cuda_device):
     a = torch.randn(48, 160, device=cuda_device).to(dtype)
     m = torch.randn(160, 72, device=cuda_device).to(dtype)
     assert torch.equal(anemm(a, m, epilogue="swish"), lut_activation("swish")(anemm(a, m)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_conv2d_images_do_not_depend_on_batch(dtype, cuda_device, monkeypatch):
+    """The first images of a 4-image call come out bit-identical in calls of
+    1 to 3 images, with a tile's chunks over a cluster and walked by one
+    block: Cin on the 16-byte path (8, 80) and off it (6), SAME and VALID,
+    strided, the GELU fused; and within tolerance of the plain version."""
+    taken = common.launch_plan
+
+    def one_block(m, n, chunks):
+        return common.LaunchPlan(taken(m, n, chunks).bm, 1)
+
+    rng = np.random.default_rng(9)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for cin, stride, padding in ((8, (1, 2), "SAME"), (6, (2, 1), "VALID"), (80, (1, 1), "SAME")):
+        x = torch.from_numpy(rng.normal(size=(4, 5, 40, cin))).to(cuda_device, dtype)
+        w = torch.from_numpy(rng.normal(size=(3, 3, cin, 72)) * cin ** -0.5).to(cuda_device,
+                                                                                  dtype)
+        b = torch.from_numpy(rng.normal(size=(72,))).to(cuda_device, dtype)
+
+        def run(images):
+            return conv2d(images, w, b, stride=stride, padding=padding, epilogue="gelu")
+
+        full = run(x)
+        for n in (1, 2, 3):
+            with monkeypatch.context() as patch:
+                patch.setattr(common, "launch_plan", one_block)
+                walked = run(x[:n])
+            for got in (run(x[:n]), walked):
+                assert torch.equal(got.view(bits), full[:n].view(bits)), (dtype, cin, n)
+        want = conv2d_ref(x, w, b, stride=stride, padding=padding,
+                          epilogue_table=table_operands("gelu", cuda_device))
+        rtol, atol = treg.get("conv2d").tol(dtype)
+        torch.testing.assert_close(full.float(), want.float(), rtol=rtol, atol=atol)

@@ -8,9 +8,8 @@ a CPU tensor runs the kernel's plain PyTorch version. They must agree at the
 reference registry's tolerance. The port's registry rows must mirror the
 reference's: case names, dims, edge flags, dtypes and tolerances. The packed
 rows pack with the port's own packers, which must give the reference's
-payloads: bit for bit, except that a palette codebook entry may differ by 2
-float32 ulp (a Lloyd mean is a float64 sum rounded once here, a pairwise
-float32 sum in numpy).
+payloads bit for bit, palette codebooks included (each Lloyd mean is taken
+in numpy's float32 summation order).
 
 The CUDA kernels themselves run only on a card: the `cuda`-marked tests at
 the end hold each kernel against its plain version there and skip here.
@@ -32,13 +31,13 @@ from repro_torch.kernels.anemm.anemm import anemm
 from repro_torch.kernels.anemm.ref import anemm_ref
 from repro_torch.kernels.flash.decode_attention import decode_attention
 from repro_torch.kernels.flash.flash_attention import flash_attention
-from repro_torch.kernels.palette.palette_matmul import palette_matmul
+from repro_torch.kernels.palette.palette_matmul import pack_kn, palette_matmul
 from repro_torch.kernels.palette.ref import palette_matmul_ref
 from repro_torch.kernels.sparse.ref import sparse_matmul_ref
 from repro_torch.kernels.sparse.sparse_matmul import pack_pair_sparse, sparse_matmul
 
 KERNELS = ("anemm", "palette", "sparse", "flash", "decode_attention")
-LUT_ULPS = 2   # a palette codebook entry against the reference's (see above)
+LUT_ULPS = 0   # a palette codebook entry against the reference's: the same bits
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -314,10 +313,11 @@ def test_palette_ragged_k_matches_pallas():
 # and dtype, never M; the launch that spreads it stays within the card
 # ---------------------------------------------------------------------------
 
-# every K of the port's matmuls (tinyllama, whisper-small, the registry
-# rows) and the shapes around a chunk's edges
-PLAN_KS = (1, 8, 16, 32, 63, 64, 65, 130, 144, 256, 257, 300, 384, 512, 768, 2048,
-           3072, 5632, 32000)
+# every K of the port's matmuls and convs (tinyllama, whisper-small and its
+# stem convs' KW*Cin, the registry rows) and the shapes around a chunk's
+# edges
+PLAN_KS = (1, 8, 16, 32, 63, 64, 65, 130, 144, 240, 256, 257, 300, 384, 512, 768, 2048,
+           2304, 3072, 5632, 32000)
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
@@ -363,16 +363,19 @@ def stream_smem_bytes(bm: int, weight: str) -> int:
     """smem_bytes of tile_matmul.cuh's streaming loop, restated: a ring of 4
     stages of the activation slice (bm rows of 64 16-bit values) and the
     weight's share (dense: 64 such rows; sparse: 32 value rows and 4
-    selector rows of 64 bytes), each rounded up to 128 bytes, or the fp32
-    output tile (bm x 68) if larger."""
-    share = {"dense": 64 * 128, "sparse": 32 * 128 + 4 * 64}[weight]
+    selector rows of 64 bytes; palette: 32 packed rows of 64 bytes), each
+    rounded up to 128 bytes, then the weight's block-wide state (palette:
+    its 256-entry byte table, 1 KB), or the fp32 output tile (bm x 68) if
+    larger."""
+    share = {"dense": 64 * 128, "sparse": 32 * 128 + 4 * 64, "palette": 32 * 64}[weight]
+    state = {"palette": 256 * 4}.get(weight, 0)
     stage = -(-(bm * 128 + share) // 128) * 128
-    return max(4 * stage, bm * 68 * 4)
+    return max(4 * stage + state, bm * 68 * 4)
 
 
 def test_stream_shared_memory_fits_a_block():
     for bm in common.STREAM_ROWS:
-        for weight in ("dense", "sparse"):
+        for weight in ("dense", "sparse", "palette"):
             smem = stream_smem_bytes(bm, weight)
             assert smem <= SMEM_LIMIT
             # an 8-row decode tile: six blocks an SM, so that gate_up's 704
@@ -465,8 +468,9 @@ def test_cuda_packed_wrappers_refuse_fp16_activations(cuda_device):
 def test_cuda_matmul_rows_do_not_depend_on_m(cuda_device, monkeypatch):
     """The first rows of a 96-row activation come out bit-identical at 1 to
     96 rows, with a tile's chunks over a cluster (the plan at these sizes)
-    and walked by one block: anemm in three dtypes, sparse in two, at K of 8
-    chunks and of 6 (the last one short), N aligned and ragged."""
+    and walked by one block: anemm in three dtypes, sparse and palette in
+    two, at K of 8 chunks and of 6 (the last one short), N aligned and
+    ragged."""
     taken = common.launch_plan
 
     def one_block(m, n, chunks):
@@ -476,10 +480,13 @@ def test_cuda_matmul_rows_do_not_depend_on_m(cuda_device, monkeypatch):
     for k, n in ((512, 192), (272, 130), (1040, 72)):
         w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32))
         values, selector = (t.to(cuda_device) for t in pack_pair_sparse(w))
+        packed, lut = pack_kn(w.to(cuda_device), iters=4)
         runs = {("anemm", dt): (lambda a, dt=dt: anemm(a, w.to(cuda_device, dt)))
                 for dt in treg.get("anemm").dtypes}
         runs.update({("sparse", dt): (lambda a: sparse_matmul(a, values, selector))
                      for dt in treg.get("sparse").dtypes})
+        runs.update({("palette", dt): (lambda a: palette_matmul(a, packed, lut))
+                     for dt in treg.get("palette").dtypes})
         for (name, dt), run in runs.items():
             a = torch.from_numpy(rng.normal(size=(96, k))).to(cuda_device, dt)
             full = run(a)
@@ -490,7 +497,8 @@ def test_cuda_matmul_rows_do_not_depend_on_m(cuda_device, monkeypatch):
                     walked = run(a[:m])
                 for got in (run(a[:m]), walked):
                     assert torch.equal(got.view(bits), full[:m].view(bits)), (name, dt, k, n, m)
-            want = anemm_ref(a, w.to(cuda_device, dt)) if name == "anemm" else \
-                sparse_matmul_ref(a, values, selector)
+            want = {"anemm": lambda: anemm_ref(a, w.to(cuda_device, dt)),
+                    "sparse": lambda: sparse_matmul_ref(a, values, selector),
+                    "palette": lambda: palette_matmul_ref(a, packed, lut)}[name]()
             rtol, atol = treg.get(name).tol(dt)
             torch.testing.assert_close(full.float(), want.float(), rtol=rtol, atol=atol)
