@@ -27,7 +27,15 @@ printing one JSON line for each:
                four key splits with peaked scores (q drawn at 4x), held
                also to 4 roundings of the largest output; the short-query
                plan timed beside other split lengths and one split, on 1
-               and 8 lanes at d 64, 128 and 256; `anemm` (fp32, bf16, fp16),
+               and 8 lanes at d 64, 128 and 256; the decode plan the same
+               way at 544 and 4,096 slots and on the served arena's shape
+               (`decode_plans`); decode on 8 lanes bit-identical to the
+               first 8 of 16 and to a rerun at 544 and 4,096 slots over
+               several splits (`decode_rows`); decode with a lane that has
+               no valid slot, and at whisper-small's decoder shape (12/12
+               heads, its 160-slot cache); the verify kernels with equal
+               maxima on both sides of a column-slice boundary and with
+               NaN in one or two slices; `anemm` (fp32, bf16, fp16),
                `sparse` and `palette` (fp32, bf16) row-invariant: the first
                rows of a 512-row activation bit-identical at 1 to 512 rows,
                at every main-path (K, N) and two ragged ones; `conv2d` (fp32,
@@ -120,9 +128,9 @@ limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
     python3 chip_smoke.py --turn LABEL
 
 runs, after the device and build phases, only one turn of a comparison of
-two checkouts on one card (`compare_turn`: matmul and stem-conv times and
-output digests, the fp16, sparse and int4 serves with a profiled round
-each),
+two checkouts on one card (`compare_turn`: matmul, stem-conv, decode,
+paged-decode and verify times and output digests, the fp16, sparse and
+int4 serves with a profiled round each),
 its records tagged LABEL. Copy this file into the other checkout and run it
 from each in turns (parent, change, change, parent).
 Any failure raises and the exit code is not 0; no phase is skipped. Without a
@@ -160,6 +168,7 @@ from repro_torch.kernels import common, native, registry  # noqa: E402
 from repro_torch.kernels.act_lut.ops import lut_activation, table_operands  # noqa: E402
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
+from repro_torch.kernels.flash import decode_attention as da  # noqa: E402  (the module)
 from repro_torch.kernels.flash import flash_attention as fa  # noqa: E402  (the module)
 from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref, gather_pages, gathered_positions,
@@ -167,6 +176,7 @@ from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash.flash_attention import HEAD_DIMS as FLASH_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.specdec import specdec as sd  # noqa: E402  (the module)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.scheduler import Request, merge_prefill_caches  # noqa: E402
 from repro_torch.launch.speculative import Drafter, SpeculativeSchedule  # noqa: E402
@@ -227,6 +237,14 @@ PEAK_ROUNDINGS = 4
 # the short-query plans timed beside the one flash_plan takes: key splits of
 # this many keys (and one split, without the combine pass)
 SPLIT_LENS = (128, 256, 512)
+
+# the decode plans timed beside the one decode_plan takes: splits of this
+# many slots where they make 2 to MAX_SPLITS splits (and one split, without
+# the merge), at these cache lengths (the serve phase's and a long one) and
+# head dims (query heads / kv heads: tinyllama's at d 64, WIDE_HEADS beyond)
+DECODE_SPLIT_SLOTS = (64, 128, 256, 512, 1024, 2048)
+DECODE_LENS = (SERVE_MAX_LEN, 4096)
+DECODE_HEADS = {64: (32, 4), **WIDE_HEADS}
 
 # the row-invariance check of anemm and sparse: activation rows, and ragged
 # (K, N) beside the main-path shapes (sparse's K rounded up to a multiple of
@@ -382,19 +400,19 @@ def main_path_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
                   {"q": normal((1, h, L, dh), bf16), "k": normal((1, kv, L, dh), bf16),
                    "v": normal((1, kv, L, dh), bf16)}))
     B, S = 8, SERVE_MAX_LEN
-    lens = torch.tensor([int(x) for x in SERVE_LENS.split(",")], dtype=torch.int32,
-                        device=dev) + SERVE_GEN // 2
-    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
     cases.append(("decode_attention", f"B={B} S={S} H={h} KV={kv} d={dh} bf16",
-                  {"q": normal((B, h, dh), bf16),
-                   "k_cache": normal((B, S, kv, dh), bf16),
-                   "v_cache": normal((B, S, kv, dh), bf16),
-                   "positions": torch.where(pos < lens[:, None], pos, -1).contiguous(),
-                   "current": (lens - 1).contiguous()}))
+                  decode_inputs(rng, B, S, h, kv, dh, serve_lens())))
+    # whisper-small's decoder self-attention: MHA (12/12 heads), the encoder
+    # serve's cache (prompts to 128 + 32 tokens), lanes halfway through
+    w = configs.get_config(ENCODER_ARCH)
+    s_w = max(int(x) for x in ENCODER_LENS.split(",")) + SERVE_GEN
+    cases.append(("decode_attention",
+                  f"whisper B={B} S={s_w} H={w.n_heads} KV={w.n_heads} d={w.d_head} bf16",
+                  decode_inputs(rng, B, s_w, w.n_heads, w.n_heads, w.d_head,
+                                serve_lens(ENCODER_LENS))))
     # whisper-small: the stem's two convs with the GELU fused at the output
     # port (conv2 first: the headline), the GELU table over the stem's
     # output, the pools of the pyramid
-    w = configs.get_config(ENCODER_ARCH)
     t, d_w = w.frame_shape[0], w.d_model
     for label, i in stem_conv_inputs(rng):
         dims = ",".join(map(str, i["x"].shape))
@@ -494,6 +512,16 @@ def library_call(name: str, i: dict):
 
 
 PAGED_NAMES = ("q", "k_arena", "v_arena", "pos_arena", "block_tables", "current")
+DECODE_NAMES = ("q", "k_cache", "v_cache", "positions", "current")
+
+# the wrapper call a kernel's time is taken of, where the registry row adds
+# work around it (the verify rows pack their three outputs into one array)
+KERNEL_CALLS = {
+    "decode_attention": lambda i: decode_attention(*(i[k] for k in DECODE_NAMES)),
+    "paged_decode_attention": lambda i: paged_decode_attention(*(i[k] for k in PAGED_NAMES)),
+    "specdec": lambda i: sd.verify_accept_kernel(i["scores"], i["draft"])[0],
+    "specdec_tree": lambda i: sd.verify_accept_tree_kernel(i["scores"], i["draft"])[0],
+}
 
 
 def decode_on_gathered_pages(i: dict, window=None) -> torch.Tensor:
@@ -563,9 +591,10 @@ def check_case(spec, label, inputs, failures: list, timer=None, peaked=False) ->
         t_ops = ops / target.peak_for(dtype_name(dtype))
         t_bytes = nbytes / target.hbm_bandwidth
         library = library_call(spec.name, inputs)
+        run = KERNEL_CALLS.get(spec.name, spec.run_kernel)
         rec.update({
-            "ms": timer.device_ms(lambda: spec.run_kernel(inputs)),
-            "eager_ms": timer.eager_ms(lambda: spec.run_kernel(inputs)),
+            "ms": timer.device_ms(lambda: run(inputs)),
+            "eager_ms": timer.eager_ms(lambda: run(inputs)),
             "plain_ms": timer.device_ms(lambda: spec.run_oracle(inputs)),
             "library_ms": None if library is None else timer.device_ms(library),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -678,6 +707,99 @@ def time_flash_plans(rng, timer) -> None:
                      plan=chosen(1, n)._asdict(), ms_by_split_len=ms)
     finally:
         fa.flash_plan = chosen
+
+
+def serve_lens(prompt_lens: str = SERVE_LENS) -> list[int]:
+    """Each lane's written length halfway through a serve's generation."""
+    return [int(x) + SERVE_GEN // 2 for x in prompt_lens.split(",")]
+
+
+def decode_inputs(rng, b: int, s: int, h: int, kvh: int, d: int, lens) -> dict:
+    """decode_attention's operands, bf16 on the card: lane i holds positions
+    0..lens[i]-1 in its first slots (the rest empty, -1) and decodes at
+    lens[i] - 1."""
+    def normal(shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(device="cuda", dtype=torch.bfloat16)
+
+    lens = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device="cuda")
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+    return {"q": normal((b, h, d)), "k_cache": normal((b, s, kvh, d)),
+            "v_cache": normal((b, s, kvh, d)),
+            "positions": torch.where(pos < lens[:, None], pos, -1).contiguous(),
+            "current": (lens - 1).contiguous()}
+
+
+def split_lengths(s: int, bk: int) -> list:
+    """The split lengths of DECODE_SPLIT_SLOTS (multiples of bk) that cut s
+    slots into 2 to MAX_SPLITS splits, then None: one split."""
+    return [n for n in DECODE_SPLIT_SLOTS
+            if n % bk == 0 and 2 <= -(-s // n) <= da.MAX_SPLITS] + [None]
+
+
+def time_decode_plans(rng, timer) -> None:
+    """The decode plan beside the plans it did not take: at the serve phase's
+    cache length and at 4,096 slots, tinyllama's heads at d 64 and the wide
+    heads at d 128 and 256, on 1 and 8 lanes of random lengths, bk 64, and
+    the paged form on the served arena's shape (8 lanes, 16 pages of 16):
+    the split lengths of `split_lengths` and one split (no merge). Timed
+    only, through the wrapper with `decode_plan` swapped for the plan under
+    test."""
+    bk, chosen = da.DEFAULT_CHUNK, da.decode_plan
+    try:
+        for d, (h, kvh) in DECODE_HEADS.items():
+            for s in DECODE_LENS:
+                chunks = -(-s // bk)
+                for b in (1, 8):
+                    i = decode_inputs(rng, b, s, h, kvh, d, rng.integers(1, s + 1, size=b))
+                    ms = {}
+                    for slots in split_lengths(s, bk):
+                        per = chunks if slots is None else slots // bk
+                        plan = da.DecodePlan(-(-chunks // per), per)
+                        da.decode_plan = lambda *_, plan=plan: plan
+                        ms[slots or "one split"] = timer.device_ms(
+                            lambda: decode_attention(*(i[k] for k in DECODE_NAMES)))
+                    emit("decode_plans", lanes=b, heads=h, kv_heads=kvh, s=s, d=d, bk=bk,
+                         plan=chosen(s, bk)._asdict(), ms_by_split_slots=ms)
+        # the paged form at the served arena's shape: 16 pages of 16 slots
+        h, kvh = DECODE_HEADS[64]
+        i = registry.get("paged_decode_attention").make_inputs(
+            registry.ShapeCase("arena", (8, h, kvh, 160, 16, 16, 64, 256)), torch.bfloat16,
+            rng, "cuda")
+        ms = {}
+        for slots in split_lengths(256, 16):
+            per = 16 if slots is None else slots // 16
+            plan = da.DecodePlan(-(-16 // per), per)
+            da.decode_plan = lambda *_, plan=plan: plan
+            ms[slots or "one split"] = timer.device_ms(lambda: KERNEL_CALLS[
+                "paged_decode_attention"](i))
+        emit("decode_plans", kernel="paged_decode_attention", lanes=8, heads=h, kv_heads=kvh,
+             s=256, d=64, bk=16, plan=chosen(256, 16)._asdict(), ms_by_split_slots=ms)
+    finally:
+        da.decode_plan = chosen
+
+
+def check_decode_rows(rng, failures: list) -> None:
+    """The row contract under splits: decode at the serve phase's cache
+    length and at 4,096 slots (9 and 64 splits at bk 64), 16 lanes of random
+    lengths; 8 lanes must equal the first 8 of the 16 bit for bit, and the
+    same call twice the same bits, in bf16 at tinyllama's heads and in fp32
+    at whisper's (12/12, d 64)."""
+    for s in DECODE_LENS:
+        for dtype, (h, kvh) in ((torch.bfloat16, (32, 4)), (torch.float32, (12, 12))):
+            i = decode_inputs(rng, 16, s, h, kvh, 64, rng.integers(1, s + 1, size=16))
+            i = {k: v.to(dtype) if v.is_floating_point() else v for k, v in i.items()}
+            full = decode_attention(*(i[k] for k in DECODE_NAMES))
+            eight = decode_attention(*(i[k][:8] for k in DECODE_NAMES))
+            checks = {"8 of 16 lanes": (eight, full[:8]),
+                      "rerun": (decode_attention(*(i[k] for k in DECODE_NAMES)), full)}
+            for label, (a, b) in checks.items():
+                same = torch.equal(a, b)
+                emit("decode_rows", check=label, s=s, heads=h, kv_heads=kvh,
+                     dtype=dtype_name(dtype), plan=da.decode_plan(s, da.DEFAULT_CHUNK)._asdict(),
+                     bit_identical=same)
+                if not same:
+                    failures.append(f"decode_attention S={s} {dtype_name(dtype)} {label}: "
+                                    "not bit-identical")
 
 
 def check_row_invariance(cfg, failures: list) -> None:
@@ -852,12 +974,11 @@ def check_kernels(cfg, timer) -> dict:
             check(mf, f"peaked splits {dims} d={d} {dtype_name(dtype)}",
                   {**i, "causal": False}, False, peaked=True)
     # the sliding window of decode, which the registry cases leave off
-    names = ("q", "k_cache", "v_cache", "positions", "current")
     for dtype in dec.dtypes:
         i = dec.make_inputs(dec.cases[0], dtype, rng, "cuda")
         win = dataclasses.replace(
-            dec, run_kernel=lambda i: decode_attention(*(i[k] for k in names), window=24),
-            run_oracle=lambda i: decode_attention_ref(*(i[k] for k in names), window=24))
+            dec, run_kernel=lambda i: decode_attention(*(i[k] for k in DECODE_NAMES), window=24),
+            run_oracle=lambda i: decode_attention_ref(*(i[k] for k in DECODE_NAMES), window=24))
         check(win, f"window=24 {dtype_name(dtype)}", i, False)
     # decode and the paged decode at the wide heads (d 128: 32/8 heads, d
     # 256: 16/1), with and without a window; the paged form bit for bit
@@ -872,6 +993,15 @@ def check_kernels(cfg, timer) -> dict:
                                dtype, rng, "cuda")
             check(pg, f"wide H={h} KV={kvh} d={d} {dtype_name(dtype)}", i, False)
             check_paged_bits(i, f"wide d={d}", dtype, failures)
+
+    # a lane with no valid slot (nothing written, current -1) beside written
+    # ones at the serve phase's cache length, over 9 splits: the plain
+    # version's uniform average over the lane's slots
+    lens = serve_lens()
+    lens[3] = 0
+    h, kvh = DECODE_HEADS[64]
+    check(dec, f"all-masked lane B=8 S={SERVE_MAX_LEN} H={h} KV={kvh} d=64 bf16",
+          decode_inputs(rng, 8, SERVE_MAX_LEN, h, kvh, 64, lens), False)
 
     # the paged decode: bit for bit against decode_attention(bk=bs) on the
     # gathered pages on every registry case, and with a window
@@ -893,13 +1023,22 @@ def check_kernels(cfg, timer) -> dict:
         spec = registry.get(name)
         dims = (8, SPEC_DEPTH + 1, cfg.vocab) if name == "specdec" else \
             (8, 2, SPEC_DEPTH + 1, cfg.vocab)
-        for kind in ("ties", "-inf"):
+        for kind in ("ties", "-inf", "slice ties", "nan"):
             i = spec.make_inputs(registry.ShapeCase("stress", dims), torch.float32, rng, "cuda")
             s = i["scores"]
-            if kind == "ties":
+            if kind in ("ties", "slice ties"):
+                # equal maxima at random columns, or on both sides of the
+                # first pass's slice boundaries (the first index must win)
+                edge = sd.slice_plan(cfg.vocab).slice_cols
+                cols = (torch.randint(0, cfg.vocab, s.shape[:-1] + (3,), device="cuda")
+                        if kind == "ties" else torch.tensor(
+                            [edge - 1, edge, 2 * edge + 3], device="cuda").expand(
+                                *s.shape[:-1], 3).contiguous())
                 top = s.amax(-1, keepdim=True) + 1.0
-                cols = torch.randint(0, cfg.vocab, s.shape[:-1] + (3,), device="cuda")
                 s.scatter_(-1, cols, top.expand(*s.shape[:-1], 3).contiguous())
+            elif kind == "nan":                   # NaN in one slice, or in two
+                s[::2, ..., 5000] = float("nan")
+                s[::3, ..., 20000] = float("nan")
             else:
                 s[1::2] = float("-inf")           # every other lane
             check(spec, f"{kind} rows " + "x".join(map(str, dims)), i, False)
@@ -930,6 +1069,8 @@ def check_kernels(cfg, timer) -> dict:
                       + (" route views" if views else ""), {**i, "causal": False}, True,
                   peaked=True)
     time_flash_plans(rng, timer)
+    time_decode_plans(rng, timer)
+    check_decode_rows(rng, failures)
     for name, label, inputs in wide_head_inputs(rng):
         check(mf if name == "flash" else registry.get(name), "main " + label, inputs, True)
     check_flash_bits(rng, failures)
@@ -954,16 +1095,41 @@ def check_kernels(cfg, timer) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def decode_turn_inputs(cfg, rng) -> list[tuple[str, str, dict]]:
+    """(kernel, shape label, inputs) of the decode and verify kernels for a
+    `--turn`: decode at the serve phase's cache (tinyllama's heads, the wide
+    heads, whisper's MHA), the paged decode on 8 lanes of 16 pages of 16 (the
+    served arena's shape), the chain and tree verify windows."""
+    w = configs.get_config(ENCODER_ARCH)
+    cases = [("decode_attention", f"B=8 S={SERVE_MAX_LEN} H={h} KV={kvh} d={d}",
+              decode_inputs(rng, 8, SERVE_MAX_LEN, h, kvh, d, serve_lens()))
+             for d, (h, kvh) in DECODE_HEADS.items()]
+    cases.append(("decode_attention", f"whisper B=8 S=160 H={w.n_heads} d={w.d_head}",
+                  decode_inputs(rng, 8, 160, w.n_heads, w.n_heads, w.d_head,
+                                serve_lens(ENCODER_LENS))))
+    h, kvh = DECODE_HEADS[64]
+    cases.append(("paged_decode_attention", f"B=8 H={h} KV={kvh} d=64 bs=16 nb=16",
+                  registry.get("paged_decode_attention").make_inputs(
+                      registry.ShapeCase("arena", (8, h, kvh, 160, 16, 16, 64, 256)),
+                      torch.bfloat16, rng, "cuda")))
+    for name, dims in (("specdec", (8, SPEC_DEPTH + 1, cfg.vocab)),
+                       ("specdec_tree", (8, 2, SPEC_DEPTH + 1, cfg.vocab))):
+        cases.append((name, "x".join(map(str, dims)), registry.get(name).make_inputs(
+            registry.ShapeCase("main", dims), torch.float32, rng, "cuda")))
+    return cases
+
+
 def compare_turn(label: str, cfg) -> None:
     """One turn of a comparison of two checkouts of the port on one card:
     copy this file into the other checkout and run it with `--turn` from
     each in turns (parent, change, change, parent). Device times (CUDA-graph
     replay, L2 flushed) and output digests of the matmul kernels at
     tinyllama's projections on 8, 40, 80 and 512 rows, the fp32 head on 1
-    and 8 and whisper-small's two stem convs (inputs from a fixed seed, so
-    equal digests mean equal bits), then the fp16, sparse and int4_palette
-    serves with one profiled round each. It uses only what every checkout of
-    the port has."""
+    and 8, whisper-small's two stem convs and the decode and verify kernels
+    (`decode_turn_inputs`; inputs from a fixed seed, so equal digests mean
+    equal bits), then the fp16, sparse and int4_palette serves with one
+    profiled round each. It uses only what every checkout of the port
+    has."""
     rng = np.random.default_rng(11)
     timer = Timer()
     bf16 = torch.bfloat16
@@ -990,6 +1156,8 @@ def compare_turn(label: str, cfg) -> None:
             record(name, shape, lambda: registry.get(name).run_kernel(i))
     for conv, i in stem_conv_inputs(rng):
         record("conv2d", f"stem {conv}", lambda: registry.get("conv2d").run_kernel(i))
+    for name, shape, i in decode_turn_inputs(cfg, rng):
+        record(name, shape, lambda: KERNEL_CALLS[name](i))
     for form in ("fp16", "sparse", "int4_palette"):
         emit("turn_serve", turn=label, weight_form=form)
         serve_main_path(form)

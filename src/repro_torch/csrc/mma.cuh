@@ -1,7 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy primitives of the port's
 // Hopper kernels (flash_attention.cu, the streaming matmul loop of
-// tile_matmul.cuh): 16-byte cp.async into shared memory, ldmatrix, and
-// mma.sync.m16n8k16 with fp32 accumulators. Each is one PTX instruction.
+// tile_matmul.cuh, decode_attention.cuh): 16- and 4-byte cp.async into
+// shared memory, ldmatrix, and mma.sync.m16n8k16 with fp32 accumulators.
+// Each is one PTX instruction.
 #pragma once
 
 #include "common.cuh"
@@ -16,6 +17,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronous (through L1: .cg takes 16 only)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

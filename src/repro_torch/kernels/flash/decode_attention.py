@@ -12,11 +12,17 @@ paged form reads the same cache through (B, nb) block tables from a shared
 (N, bs, KV, d) arena (`launch/kv_pool.py` fills it); a -1 entry is an
 unmapped page, whose slots are masked.
 
+On the card both split the cache length over blocks (`decode_plan`, a
+function of the cache length and the chunk alone) and merge the splits'
+partials in split order, in one launch.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version (`decode_attention_ref`, `paged_decode_attention_ref`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -26,8 +32,32 @@ NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32      # query heads per kv head the kernel stages at once
-CHUNKS = (8, 16, 64)   # cache slots per online-softmax step the body takes
+CHUNKS = (8, 16, 64)   # cache slots of a chunk (a page of the paged form)
 DEFAULT_CHUNK = 64
+SPLIT_SLOTS = 128      # cache slots a split reads, at the least (PERF.md §6)
+MAX_SPLITS = 8         # the splits of a (lane, kv head) merge in one portable cluster
+
+
+class DecodePlan(NamedTuple):
+    n_split: int            # splits of the cache length; more than one merge in a cluster
+    chunks_per_split: int   # whole chunks a split owns
+
+
+def decode_plan(s: int, bk: int) -> DecodePlan:
+    """The kernel's split of an s-slot cache read in bk-slot chunks. A
+    function of (s, bk) alone, never of the batch, the heads or the card: a
+    lane's bits must not change with how many lanes run beside it, and the
+    paged form (s = nb·bs, bk = bs) takes the plan of `decode_attention(bk=bs)`
+    on its gathered pages. Splits of whole chunks, SPLIT_SLOTS slots or more
+    (more where MAX_SPLITS would not cover s), tile [0, s) in order; none is
+    empty."""
+    if bk not in CHUNKS:
+        raise ValueError(f"decode_plan: chunk of {bk} slots; the kernel takes {CHUNKS}")
+    if s < 1:
+        raise ValueError(f"decode_plan: a cache needs >= 1 slot, got {s}")
+    chunks = -(-s // bk)
+    per = max(-(-SPLIT_SLOTS // bk), -(-chunks // MAX_SPLITS))
+    return DecodePlan(-(-chunks // per), per)
 
 
 def decode_attention_ref(q, k_cache, v_cache, positions, current, *,
@@ -72,6 +102,24 @@ def _check_kernel_surface(name, q, kvh, d, chunk) -> None:
         raise ValueError(f"{name}: chunk of {chunk} slots; the kernel takes {CHUNKS}")
 
 
+def _check_rows_aligned(name, *tensors) -> None:
+    """The kernel stages q and K/V rows with 16-byte copies: each tensor
+    must start 16-byte aligned and its leading stride (a paged arena's
+    block stride) must keep every row so; a view that does not is refused,
+    never copied."""
+    for t in tensors:
+        if t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16:
+            raise ValueError(f"{name}: rows must start 16-byte aligned (data_ptr "
+                             f"{t.data_ptr():#x}, strides {t.stride()}, {t.dtype})")
+
+
+def _launch(name, q, args, plan: DecodePlan) -> None:
+    """One launch with its plan, on q's device and current stream."""
+    with torch.cuda.device(q.device):
+        native.launch(name, *args, native.dtype_code(q.dtype), plan.n_split,
+                      plan.chunks_per_split, torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def _device_of(name, *tensors) -> torch.device:
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -113,17 +161,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     _check_kernel_surface("decode_attention", q, kvh, d, chunk)
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, positions, current)):
         raise ValueError("decode_attention: operands must be contiguous")
+    _check_rows_aligned("decode_attention", q, k_cache, v_cache)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
-    with torch.cuda.device(q.device):
-        native.launch(
-            "decode_attention", q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            positions.data_ptr(), current.data_ptr(), out.data_ptr(),
-            b, h, kvh, s, d, -1 if window is None else int(window), float(scale), chunk,
-            native.dtype_code(q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    _launch("decode_attention", q,
+            (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
+             current.data_ptr(), out.data_ptr(), b, h, kvh, s, d,
+             -1 if window is None else int(window), float(scale), chunk),
+            decode_plan(s, chunk))
     return out
 
 
@@ -203,16 +250,16 @@ def paged_decode_attention(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torc
     if not all(t.is_contiguous() for t in (q, block_tables, current)):
         raise ValueError("paged_decode_attention: q, block tables and current must be "
                          "contiguous")
+    _check_rows_aligned("paged_decode_attention", q, k_arena, v_arena)
     scale = scale if scale is not None else d ** -0.5
     nb = block_tables.shape[1]
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
-    with torch.cuda.device(q.device):
-        native.launch(
-            "paged_decode_attention", q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            pos_arena.data_ptr(), block_tables.data_ptr(), current.data_ptr(),
-            out.data_ptr(), b, h, kvh, bs, nb, d, k_arena.stride(0), pos_arena.stride(0),
-            -1 if window is None else int(window), float(scale),
-            native.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
+    _launch("paged_decode_attention", q,
+            (q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), pos_arena.data_ptr(),
+             block_tables.data_ptr(), current.data_ptr(), out.data_ptr(), b, h, kvh, bs, nb,
+             d, k_arena.stride(0), pos_arena.stride(0),
+             -1 if window is None else int(window), float(scale)),
+            decode_plan(nb * bs, bs))
     return out

@@ -55,20 +55,23 @@ KERNELS: dict[str, tuple[str, str, list]] = {
               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
               + [_I64] * 9 + [_I, _I, _F, _I, _I, _P, _I, _I, _P]),
     # two sources, one body (decode_attention.cuh): the monolithic and the
-    # paged cache, built side by side
+    # paged cache, built side by side, each with its plan (splits, chunks a
+    # split)
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _I, _P]),
+                          _F, _I, _I, _I, _I, _P]),
     "paged_decode_attention": ("paged_decode_attention.cu", "paged_decode_attention_launch",
-                               [_P] * 7 + [_I] * 6 + [_I64, _I64, _I, _F, _I, _P]),
+                               [_P] * 7 + [_I] * 6 + [_I64, _I64, _I, _F, _I, _I, _I, _P]),
     "palette": ("palette_matmul.cu", "palette_matmul_launch",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "sparse": ("sparse_matmul.cu", "sparse_matmul_launch",
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # one source, two entry points: the chain and the tree verify/accept
-    "specdec": ("specdec.cu", "specdec_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # one source, two entry points: the chain and the tree verify/accept,
+    # each with its plan: workspace, slices, columns a slice
+    "specdec": ("specdec.cu", "specdec_launch",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P]),
     "specdec_tree": ("specdec.cu", "specdec_tree_launch",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]),
     "act_lut": ("act_lut.cu", "act_lut_launch", [_P, _P, _P, _I64, _I, _I, _P]),
     "conv2d": ("conv2d.cu", "conv2d_launch", [_P] * 5 + [_I] * 18 + [_P]),
     # one source, two entry points: the avg and the max window reduction

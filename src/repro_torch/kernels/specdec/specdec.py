@@ -9,16 +9,55 @@ length is the matched prefix of the draft; a window emits
 `samples[:, :accept + 1]`. The tree form reduces over NBR sibling branches
 per lane and keeps the first branch with the longest prefix.
 
+The kernel reads each score row in column slices over the card
+(`slice_plan`, a function of V alone) and merges the slices' picks in a
+second pass from the same entry point; the wrapper allocates the slices'
+(value, index) pairs.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version of `ref.py`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import native
 from repro_torch.kernels.specdec.ref import verify_accept_ref, verify_accept_tree_ref
+
+
+SLICE_COLS = 4096      # columns a first-pass block reduces: 8 slices at V = 32,000
+
+
+class SlicePlan(NamedTuple):
+    n_slice: int        # column slices of every score row
+    slice_cols: int     # columns a slice owns, a multiple of 4 (16 bytes of fp32)
+
+
+def slice_plan(v: int) -> SlicePlan:
+    """The column slices of a score row of V columns. A function of V
+    alone, never of the rows or the card: slices of SLICE_COLS columns (one
+    slice of V rounded up to 4 when V is shorter) that start on 16-byte
+    boundaries and cover [0, V), none starting at or past V."""
+    if v < 1:
+        raise ValueError(f"slice_plan: a score row needs >= 1 column, got {v}")
+    cols = min(SLICE_COLS, -(-v // 4) * 4)
+    return SlicePlan(-(-v // cols), cols)
+
+
+def _launch(name: str, scores: torch.Tensor, draft: torch.Tensor, outs, dims, vocab: int):
+    """One verify/accept launch: the slices' pairs (int32) in a per-call
+    workspace on the scores' device."""
+    plan = slice_plan(scores.shape[-1])
+    rows = scores.numel() // scores.shape[-1]
+    ws = torch.empty(2 * rows * plan.n_slice, dtype=torch.int32, device=scores.device)
+    with torch.cuda.device(scores.device):
+        native.launch(name, scores.data_ptr(), draft.data_ptr(),
+                      *(t.data_ptr() for t in outs), *dims, vocab, ws.data_ptr(),
+                      plan.n_slice, plan.slice_cols,
+                      torch.cuda.current_stream(scores.device).cuda_stream)
 
 
 def _operands(name: str, scores: torch.Tensor, draft: torch.Tensor, vocab: int | None):
@@ -51,10 +90,7 @@ def verify_accept_kernel(scores: torch.Tensor, draft: torch.Tensor, *,
     accept = torch.empty((b,), dtype=torch.int32, device=scores.device)
     if b == 0:
         return samples, accept
-    with torch.cuda.device(scores.device):
-        native.launch("specdec", scores.data_ptr(), draft.data_ptr(), samples.data_ptr(),
-                      accept.data_ptr(), b, t, v, vocab,
-                      torch.cuda.current_stream(scores.device).cuda_stream)
+    _launch("specdec", scores, draft, (samples, accept), (b, t, v), vocab)
     return samples, accept
 
 
@@ -76,9 +112,5 @@ def verify_accept_tree_kernel(scores: torch.Tensor, draft: torch.Tensor, *,
     branch = torch.empty((b,), dtype=torch.int32, device=scores.device)
     if b == 0:
         return samples, accept, branch
-    with torch.cuda.device(scores.device):
-        native.launch("specdec_tree", scores.data_ptr(), draft.data_ptr(),
-                      samples.data_ptr(), accept.data_ptr(), branch.data_ptr(),
-                      b, nbr, t, v, vocab,
-                      torch.cuda.current_stream(scores.device).cuda_stream)
+    _launch("specdec_tree", scores, draft, (samples, accept, branch), (b, nbr, t, v), vocab)
     return samples, accept, branch
