@@ -51,7 +51,15 @@ printing one JSON line for each:
                its plain version and bit for bit against anemm-then-act_lut;
                `paged_decode_attention` on every registry case, at the wide
                heads and with a window, bit for bit against
-               `decode_attention(bk=bs)` on the gathered pages; the median
+               `decode_attention(bk=bs)` on the gathered pages; `act_lut`
+               (every table, the stem's shape) and both pools (the
+               pyramid's shapes, C = 5, every registry case, each in three
+               dtypes; NaN inputs) bit for bit against their plain versions
+               (`exact_bits`); the pool plan beside other tiles, fold widths
+               and chunks (`pool_plans`); the timer's floor, an empty CUDA
+               graph, and a copy of the act_lut and pool inputs' bytes, with
+               the L2 flushed by a write, by a read and not at all
+               (`timer_floor`); the median
                device time (CUDA-graph replay between CUDA events, L2
                flushed) of the kernel, its plain version and one PyTorch
                library call computing the same function, beside the bound
@@ -129,8 +137,8 @@ limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
 
 runs, after the device and build phases, only one turn of a comparison of
 two checkouts on one card (`compare_turn`: matmul, stem-conv, decode,
-paged-decode and verify times and output digests, the fp16, sparse and
-int4 serves with a profiled round each),
+paged-decode, verify, act_lut and pool times and output digests, the
+timer's floor, the fp16, sparse and int4 serves with a profiled round each),
 its records tagged LABEL. Copy this file into the other checkout and run it
 from each in turns (parent, change, change, parent).
 Any failure raises and the exit code is not 0; no phase is skipped. Without a
@@ -149,6 +157,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -162,12 +171,16 @@ sys.path.insert(0, str(ROOT / "src"))
 # the port itself: alone in a directory, the script stops here
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import hal  # noqa: E402
+from repro_torch.core.numerics import _LUT_SPECS  # noqa: E402
 from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
                                        ProgramCache, dtype_name)
 from repro_torch.kernels import common, native, registry  # noqa: E402
 from repro_torch.kernels.act_lut.ops import lut_activation, table_operands  # noqa: E402
+from repro_torch.kernels.act_lut.ref import act_lut_ref  # noqa: E402
 from repro_torch.kernels.anemm.anemm import anemm  # noqa: E402
 from repro_torch.kernels.anemm.ref import anemm_ref  # noqa: E402
+from repro_torch.kernels.conv import pool as pool_module  # noqa: E402  (the module)
+from repro_torch.kernels.conv.ref import out_extent  # noqa: E402
 from repro_torch.kernels.flash import decode_attention as da  # noqa: E402  (the module)
 from repro_torch.kernels.flash import flash_attention as fa  # noqa: E402  (the module)
 from repro_torch.kernels.flash.decode_attention import (  # noqa: E402
@@ -221,6 +234,8 @@ WIDE_HEADS = {128: (32, 8), 256: (16, 1)}
 # (a ResNet stem's) and a 7x7 global average pool (its head's), bf16
 POOL_SHAPES = {"max_pool": ((8, 112, 112, 64), (3, 3), (2, 2), "SAME"),
                "avg_pool": ((8, 7, 7, 2048), (7, 7), (7, 7), "VALID")}
+# every activation the engine's tables cover (act_lut's exact-bits check)
+LUT_NAMES = tuple(_LUT_SPECS)
 
 # the prefix phase: per round one shared system prompt, then unique tails;
 # every prompt's bucket is 256 and the L-1 match cap still reaches it
@@ -911,6 +926,170 @@ def time_stem_convs(rng, timer) -> None:
                  "anemm": timer.device_ms(lambda: anemm(rows, gemm_w))})
 
 
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """torch.equal, with NaN exactly where `want` has NaN."""
+    nan = torch.isnan(want)
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(got[~nan], want[~nan]))
+
+
+def check_exact_bits(rng, failures: list) -> None:
+    """act_lut and both pools bit for bit (torch.equal) against their plain
+    versions: act_lut at the stem's output shape in every dtype and through
+    every table; the pools at the pyramid's shapes in every dtype and with
+    C = 5 (the scalar path); every registry case of the three in every
+    dtype; both pools with NaN inputs (NaN exactly where the plain version
+    has it)."""
+    def record(name: str, case: str, dtype, got, want) -> None:
+        ok = same_bits(got, want)
+        emit("exact_bits", kernel=name, case=case, dtype=dtype_name(dtype), bit_identical=ok)
+        if not ok:
+            failures.append(f"{name} {case} {dtype_name(dtype)}: differs from its plain version")
+
+    w = configs.get_config(ENCODER_ARCH)
+    stem = (w.frame_shape[0], w.d_model)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        x = torch.from_numpy(rng.normal(size=stem) * 2.0).to("cuda", dtype)
+        for name in LUT_NAMES:
+            table = table_operands(name, "cuda")
+            record("act_lut", f"{name} {stem}", dtype, lut_activation(name)(x),
+                   act_lut_ref(x, table))
+        for name, (shape, window, stride, pad) in POOL_SHAPES.items():
+            spec = registry.get(name)
+            for c in (shape[3], 5):
+                i = {"x": torch.from_numpy(rng.normal(size=shape[:3] + (c,))).to("cuda", dtype),
+                     "window": window, "stride": stride, "padding": pad}
+                record(name, f"{shape[:3] + (c,)} {window} s{stride[0]} {pad}", dtype,
+                       spec.run_kernel(i), spec.run_oracle(i))
+    for name in ("act_lut", "avg_pool", "max_pool"):
+        spec = registry.get(name)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for case in spec.cases:
+                i = spec.make_inputs(case, dtype, rng, "cuda")
+                record(name, f"registry {case.name}", dtype, spec.run_kernel(i),
+                       spec.run_oracle(i))
+    for name, (shape, window, stride, pad) in POOL_SHAPES.items():
+        x = rng.normal(size=shape)
+        x[rng.random(size=shape) < 0.01] = np.nan
+        i = {"x": torch.from_numpy(x).to("cuda", torch.bfloat16), "window": window,
+             "stride": stride, "padding": pad}
+        want = registry.get(name).run_oracle(i)
+        if not bool(torch.isnan(want).any()):
+            failures.append(f"{name} NaN check: no NaN reached the plain version's output")
+        record(name, f"NaN inputs {shape}", torch.bfloat16, registry.get(name).run_kernel(i), want)
+
+
+def capture(fn) -> torch.cuda.CUDAGraph:
+    """fn captured into a CUDA graph after three warm-up calls on a side
+    stream (as Timer.device_ms captures it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # an empty graph warns
+        with torch.cuda.graph(graph):
+            fn()
+    return graph
+
+
+def time_floor(timer, rng, turn=None) -> None:
+    """The kernels' timer floor: an empty CUDA graph timed by the Timer
+    every kernel is timed by (`floor_ms`), and `out.copy_(x)` over the
+    act_lut and pool inputs' bytes at their main-path shapes (`copy_ms`).
+    Then the empty graph, the act_lut input's copy and act_lut itself with
+    the L2 flushed by a write before each call (the Timer's `flush.zero_()`,
+    which leaves ~50 MB of dirty lines), by a read (clean lines), and not
+    flushed (`by_flush`): whether the floor is those dirty lines written
+    back inside the timed window."""
+    w = configs.get_config(ENCODER_ARCH)
+    bf16 = torch.bfloat16
+    inputs = {"act_lut": torch.from_numpy(rng.normal(size=(w.frame_shape[0], w.d_model))).to(
+        "cuda", bf16)}
+    inputs.update({name: torch.from_numpy(rng.normal(size=shape)).to("cuda", bf16)
+                   for name, (shape, *_) in POOL_SHAPES.items()})
+    outs = {k: torch.empty_like(x) for k, x in inputs.items()}
+
+    def nothing():
+        return None
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        floor = timer.device_ms(nothing)
+    copy_ms = {k: timer.device_ms(lambda k=k: outs[k].copy_(inputs[k])) for k in inputs}
+    graphs = {"empty": capture(nothing),
+              "copy act_lut": capture(lambda: outs["act_lut"].copy_(inputs["act_lut"])),
+              "act_lut": capture(lambda: lut_activation("gelu")(inputs["act_lut"]))}
+    flushes = {"write": timer.flush.zero_,
+               "read": lambda: torch.sum(timer.flush, dtype=torch.int64),
+               "none": nothing}
+    by_flush = {}
+    for mode, flush in flushes.items():
+        by_flush[mode] = {}
+        for label, graph in graphs.items():
+            times = []
+            for _ in range(TIMING_REPS):
+                flush()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            by_flush[mode][label] = statistics.median(times)
+    emit("timer_floor", **({} if turn is None else {"turn": turn}), floor_ms=floor,
+         copy_ms=copy_ms, copy_bytes={k: 2 * x.numel() * x.element_size()
+                                      for k, x in inputs.items()},
+         by_flush=by_flush)
+
+
+def time_pool_plans(rng, timer) -> None:
+    """The pool kernel's plans side by side at the pyramid's shapes (bf16):
+    the plan `pool_plan` picks beside other output tiles (max) and other
+    fold widths and chunks (avg), through the wrapper with `pool_plan`
+    swapped for the plan under test; every plan must give the chosen plan's
+    bits. Timed only, in two passes (in order, then reversed), so that a
+    slow first timing shows as one."""
+    chosen = pool_module.pool_plan
+
+    def plan_with(base, shape, window, stride, pad, tile_h, tile_w, fold, chunk):
+        (wh, ww), (sh, sw) = window, stride
+        oh, ow = (out_extent(n, k, st, pad) for n, k, st in zip(shape[1:3], window, stride))
+        return base._replace(fold=fold, chunk=chunk, tile_h=tile_h, tile_w=tile_w,
+                             row_tiles=-(-oh // tile_h), col_tiles=-(-ow // tile_w),
+                             n_chunks=-(-shape[3] // chunk), patch_h=(tile_h - 1) * sh + wh,
+                             patch_w=(tile_w - 1) * sw + ww)
+
+    try:
+        for name, (shape, window, stride, pad) in POOL_SHAPES.items():
+            spec = registry.get(name)
+            i = {"x": torch.from_numpy(rng.normal(size=shape)).to("cuda", torch.bfloat16),
+                 "window": window, "stride": stride, "padding": pad}
+            base = chosen(shape, window, stride, pad, 2, True)
+            want = spec.run_kernel(i)
+            shapes = ([(th, tw, 8, 64) for th, tw in ((4, 4), (2, 8), (4, 8), (8, 8))]
+                      if name == "max_pool" else
+                      [(1, 1, fold, chunk) for fold in (2, 8) for chunk in (64, 16, 128)])
+            ms = {f"tile {th}x{tw} fold {fold} chunk {ch}": [] for th, tw, fold, ch in shapes}
+            for order in (shapes, shapes[::-1]):
+                for tile_h, tile_w, fold, chunk in order:
+                    plan = plan_with(base, shape, window, stride, pad, tile_h, tile_w, fold,
+                                     chunk)
+                    pool_module.pool_plan = lambda *_, plan=plan: plan
+                    if not torch.equal(spec.run_kernel(i), want):
+                        raise AssertionError(f"{name} plan {plan}: bits differ from {base}")
+                    ms[f"tile {tile_h}x{tile_w} fold {fold} chunk {chunk}"].append(
+                        timer.device_ms(lambda: spec.run_kernel(i)))
+                    pool_module.pool_plan = chosen
+            emit("pool_plans", kernel=name, shape=list(shape), chosen=base._asdict(), ms=ms)
+    finally:
+        pool_module.pool_plan = chosen
+
+
 def check_kernels(cfg, timer) -> dict:
     """Every registry case and every main-path shape: kernel vs plain on the
     card. Returns the headline record of each kernel but the paged decode,
@@ -1049,6 +1228,9 @@ def check_kernels(cfg, timer) -> dict:
         headline.setdefault(name, rec)
         if label.startswith("gate_up M=8"):
             headline[name] = rec                  # decode-time projection
+    check_exact_bits(rng, failures)
+    time_pool_plans(rng, timer)
+    time_floor(timer, rng)
     # whisper-small's encoder attention (non-causal, L = 1500) and a decode
     # step's cross-attention (8 lanes, one query against 1500 keys), each on
     # contiguous (B, H, S, d) tensors and on the strided (B, S, H, d) ->
@@ -1125,11 +1307,12 @@ def compare_turn(label: str, cfg) -> None:
     each in turns (parent, change, change, parent). Device times (CUDA-graph
     replay, L2 flushed) and output digests of the matmul kernels at
     tinyllama's projections on 8, 40, 80 and 512 rows, the fp32 head on 1
-    and 8, whisper-small's two stem convs and the decode and verify kernels
-    (`decode_turn_inputs`; inputs from a fixed seed, so equal digests mean
-    equal bits), then the fp16, sparse and int4_palette serves with one
-    profiled round each. It uses only what every checkout of the port
-    has."""
+    and 8, whisper-small's two stem convs, the decode and verify kernels
+    (`decode_turn_inputs`), act_lut at the stem's output and the pools at
+    the pyramid's shapes (inputs from a fixed seed, so equal digests mean
+    equal bits), the timer's floor, then the fp16, sparse and int4_palette
+    serves with one profiled round each. It uses only what every checkout
+    of the port has."""
     rng = np.random.default_rng(11)
     timer = Timer()
     bf16 = torch.bfloat16
@@ -1158,6 +1341,14 @@ def compare_turn(label: str, cfg) -> None:
         record("conv2d", f"stem {conv}", lambda: registry.get("conv2d").run_kernel(i))
     for name, shape, i in decode_turn_inputs(cfg, rng):
         record(name, shape, lambda: KERNEL_CALLS[name](i))
+    w = configs.get_config(ENCODER_ARCH)
+    x = normal((w.frame_shape[0], w.d_model), bf16, 2.0)
+    record("act_lut", f"gelu {tuple(x.shape)} bf16", lambda: lut_activation("gelu")(x))
+    for name, (shape, window, stride, pad) in POOL_SHAPES.items():
+        i = {"x": normal(shape, bf16), "window": window, "stride": stride, "padding": pad}
+        record(name, f"{shape} {window[0]}x{window[1]} s{stride[0]} {pad} bf16",
+               lambda: registry.get(name).run_kernel(i))
+    time_floor(timer, rng, turn=label)
     for form in ("fp16", "sparse", "int4_palette"):
         emit("turn_serve", turn=label, weight_form=form)
         serve_main_path(form)

@@ -75,9 +75,15 @@ class LutTable:
 
     def kernel_operands(self) -> np.ndarray:
         """The 99 float32 values a kernel reads: xs (33), slopes (32),
-        intercepts (32), then the lo and hi clamps."""
-        return np.concatenate([self.xs, self.slopes, self.intercepts,
-                               [self.lo_clamp, self.hi_clamp]]).astype(np.float32)
+        intercepts (32), then the lo and hi clamps. Raises unless the
+        float32 knots are non-decreasing: the kernels find the segment by a
+        search that equals the reference's compare count only then
+        (`csrc/lut_eval.cuh`)."""
+        ops = np.concatenate([self.xs, self.slopes, self.intercepts,
+                              [self.lo_clamp, self.hi_clamp]]).astype(np.float32)
+        if not np.all(ops[1:33] >= ops[:32]):
+            raise ValueError(f"LUT {self.name!r}: knots not non-decreasing: {ops[:33]}")
+        return ops
 
 
 def _optimal_knots(fn: Callable, lo: float, hi: float, n: int) -> np.ndarray:

@@ -5,7 +5,10 @@ the kernel is `src/repro_torch/csrc/act_lut.cu` (body `csrc/lut_eval.cuh`,
 shared with the fused epilogues of `anemm` and `conv2d`), which also says
 what bounds it on an H100. `act_lut(x, table)` evaluates the table (99 fp32
 values, `ops.table_operands`) at every element of x (fp32, bf16 or fp16,
-any shape) and stores in x's dtype.
+any shape) and stores in x's dtype. The kernel finds each segment by a
+search that needs the table's 33 knots non-decreasing; every table
+`table_operands` gives was checked so on the host when it was made
+(`core.numerics.LutTable.kernel_operands`).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version `act_lut_ref`.

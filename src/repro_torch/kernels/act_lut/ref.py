@@ -5,7 +5,8 @@
 `lut_eval_ref` takes the same steps as the CUDA `lut_eval`
 (`csrc/lut_eval.cuh`) as torch ops on fp32: in ANE mode a NaN reads as
 +inf; the segment index counts the knots 1..32 that x reaches, clipped to
-31; slope*x and the intercept are two separately rounded ops; the end
+31 (the CUDA body finds the same index by a search over the sorted knots);
+slope*x and the intercept are two separately rounded ops; the end
 clamps apply past the domain; in ANE mode the result rounds to fp16 and
 back. So the kernel and this version agree bit for bit. The table is one
 fp32 tensor of 99 values (`core.numerics.LutTable.kernel_operands`).

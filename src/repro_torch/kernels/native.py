@@ -74,9 +74,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P]),
     "act_lut": ("act_lut.cu", "act_lut_launch", [_P, _P, _P, _I64, _I, _I, _P]),
     "conv2d": ("conv2d.cu", "conv2d_launch", [_P] * 5 + [_I] * 18 + [_P]),
-    # one source, two entry points: the avg and the max window reduction
-    "avg_pool": ("pool.cu", "avg_pool_launch", [_P, _P] + [_I] * 12 + [_F, _I, _P]),
-    "max_pool": ("pool.cu", "max_pool_launch", [_P, _P] + [_I] * 12 + [_F, _I, _P]),
+    # one source, two entry points: the avg and the max window reduction,
+    # each with its geometry (12) and plan (10, kernels/conv/pool.py pool_plan)
+    "avg_pool": ("pool.cu", "avg_pool_launch", [_P, _P] + [_I] * 22 + [_F, _I, _P]),
+    "max_pool": ("pool.cu", "max_pool_launch", [_P, _P] + [_I] * 22 + [_F, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
