@@ -74,16 +74,36 @@ printing one JSON line for each:
                equal bit for bit (a tree verify window runs 16 rows where
                decode runs 8, and the spec streams must equal the continuous
                ones);
-  6. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
+  6. graphs  — every program kind the serves capture into CUDA graphs
+               (`core.dispatch.GraphProgram`), at full size: tinyllama-1.1b
+               prefill at buckets 8 and 64 and the 8-lane decode step; the
+               spec draft and verify at K = 1 and 4, the tree draft and
+               verify (K = 4, two branches), the joint catch-up and the
+               joint prefill; whisper-small's prefill and decode. Each is
+               called once (eager run, then the capture) and replayed twice
+               with new per-call inputs; every replay's outputs, the caches
+               it writes and its launch counts must equal an eager call of
+               the same function on the same inputs, bit for bit; no graph
+               may hold a host-to-device copy (each dumped as DOT);
+  7. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
                seed, bf16) served by the serve CLI's entry point through the
                continuous schedule, once per weight form: fp16 (dense, anemm),
                int4_palette (palette) and sparse (sparse), each packed on the
                card after init. Each run's launch counts are zeroed just
                before and read just after; every route must be cuda and each
-               of the run's kernels must have launched its expected count;
-  7. profile — one more round of each serve under torch.profiler: device
-               time by kernel and the device's busy share;
-  8. prefix  — the same model (fp16 form) served twice by the serve CLI's
+               of the run's kernels must have launched its expected count.
+               Every program is captured on its first dispatch and replayed
+               after: captures = misses, no recapture, replays = the program
+               dispatches less the captures (this and the capture seconds,
+               `compile_s`, out of tok/s, and the peak memory reported for
+               every serve phase);
+  8. profile — each serve once more (one round), then its second round
+               under torch.profiler, every program a replay: device time by
+               kernel, the device's busy share, and the trace's instances of
+               each of the port's kernels, which must equal the launches the
+               host counted in that round (the tracer drops a record now and
+               then: such a round is traced again, up to 5 rounds);
+  9. prefix  — the same model (fp16 form) served twice by the serve CLI's
                entry point on 8 lanes, 16 requests over two rounds, each
                round one 256-token system prompt (drawn from the seed)
                followed by unique tails (prompts 264..504, 32 tokens each):
@@ -101,7 +121,7 @@ printing one JSON line for each:
                pages): bit for bit equal to `decode_attention(bk=16)` on the
                gathered pages and within tolerance of its plain version,
                timed as the other kernels are;
-  9. spec    — the same model and requests (fp16 form) through the
+  10. spec   — the same model and requests (fp16 form) through the
                speculative schedule (`--schedule spec --draft-depth 4`) three
                ways: `--draft self`, `--draft shrink`, and `--draft shrink
                --draft-branches 2`; then once more with two branches and an
@@ -117,7 +137,7 @@ printing one JSON line for each:
                must make one verify and (if it drafted) one draft dispatch,
                and every kernel must have launched exactly as often as the
                run's forwards and windows say;
-  10. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
+  11. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
                weights from a seed) served by the serve CLI's entry point
                through the continuous schedule: per-request log-mel frames
                (3000, 80) through the two-conv stem (conv2d with the GELU
@@ -127,8 +147,8 @@ printing one JSON line for each:
                decode steps imply; then each request's frames encoded with
                the stem fused and unfused (conv2d, then act_lut), which must
                give the same bits with exactly 2 more act_lut launches per
-               request; the pools routed once at the pyramid shapes; and one
-               more round under the profiler for the device's busy share.
+               request; the pools routed once at the pyramid shapes; and a
+               profiled second round as in phase 8.
 
 Then a `kernels` line with every kernel's numbers, the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
@@ -138,8 +158,9 @@ limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
 runs, after the device and build phases, only one turn of a comparison of
 two checkouts on one card (`compare_turn`: matmul, stem-conv, decode,
 paged-decode, verify, act_lut and pool times and output digests, the
-timer's floor, the fp16, sparse and int4 serves with a profiled round each),
-its records tagged LABEL. Copy this file into the other checkout and run it
+timer's floor, the fp16, sparse and int4 serves with a profiled round each,
+two spec serves, the pooled prefix serve and the whisper-small serve with a
+profiled round), its records tagged LABEL. Copy this file into the other checkout and run it
 from each in turns (parent, change, change, parent).
 Any failure raises and the exit code is not 0; no phase is skipped. Without a
 CUDA device it exits with code 1 before printing any result; alone in a
@@ -170,7 +191,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the port itself: alone in a directory, the script stops here
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import hal  # noqa: E402
+from repro_torch.core import dispatch, hal  # noqa: E402
 from repro_torch.core.numerics import _LUT_SPECS  # noqa: E402
 from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
                                        ProgramCache, dtype_name)
@@ -197,7 +218,7 @@ from repro_torch.models import dispatched as dsp  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim.compression import compress_model_params  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
 
 # the serve phase: 8 lanes, prompts mixing bucket-exact and ragged lengths
 SERVE_LENS = "37,64,100,128,200,256,300,512"
@@ -269,6 +290,9 @@ RAGGED_SHAPES = ((257, 130), (300, 100))
 PLAN_ROWS = (8, 40, 80, 512)
 
 TIMING_REPS = 20
+# traced serve rounds the profile phase may take to get one whose trace
+# holds every kernel record (CUPTI drops a few at random)
+TRACE_ATTEMPTS = 5
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
 
 
@@ -1311,8 +1335,9 @@ def compare_turn(label: str, cfg) -> None:
     (`decode_turn_inputs`), act_lut at the stem's output and the pools at
     the pyramid's shapes (inputs from a fixed seed, so equal digests mean
     equal bits), the timer's floor, then the fp16, sparse and int4_palette
-    serves with one profiled round each. It uses only what every checkout
-    of the port has."""
+    serves with one profiled round each, the spec serves (self; shrink with
+    two branches), the pooled prefix serve and the whisper-small serve with
+    a profiled round. It uses only what every checkout of the port has."""
     rng = np.random.default_rng(11)
     timer = Timer()
     bf16 = torch.bfloat16
@@ -1353,6 +1378,39 @@ def compare_turn(label: str, cfg) -> None:
         emit("turn_serve", turn=label, weight_form=form)
         serve_main_path(form)
         profile_serve(form, serve_argv(cfg, 1, form))
+    spec = serve_argv(cfg, SERVE_ROUNDS, "fp16", "spec") + ["--draft-depth", str(SPEC_DEPTH)]
+    turn_serve(label, "spec self", spec + ["--draft", "self"])
+    turn_serve(label, "spec shrink x2", spec + ["--draft", "shrink", "--draft-branches", "2"])
+    turn_serve(label, "prefix pooled", prefix_argv(cfg, True), prompts=prefix_rounds(cfg))
+    turn_serve(label, "encoder", encoder_argv(SERVE_ROUNDS))
+    profile_serve(ENCODER_ARCH, encoder_argv(1))
+
+
+def turn_serve(label: str, name: str, argv: list[str], prompts=None) -> None:
+    """One serve of a `--turn` through the serve CLI's entry point: its
+    tokens' digest, tok/s, compile seconds and graphs (where the checkout
+    has them), dispatches and the median wall of each dispatch kind, and
+    peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.run(argv, prompts=prompts)
+    engine, recs = out["engine"], out["records"]
+    decode_key = recs[-1].key if out["schedule"] != "spec" else None
+    kinds: dict[str, list[float]] = {}
+    for r in recs:
+        kind = ("draft" if r.key in getattr(engine, "_draft_keys", ()) else
+                "verify" if r.key in getattr(engine, "_verify_keys", ()) else
+                "decode" if r.key == decode_key else
+                r.key if not re.fullmatch(r"[0-9a-f]{64}", r.key) else "program")
+        kinds.setdefault(kind, []).append(r.wall_s)
+    emit("turn_serve", turn=label, serve=name,
+         tokens_sha256=hashlib.sha256(np.ascontiguousarray(out["tokens"]).tobytes())
+         .hexdigest(), tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+         compile_s=out.get("compile_s"), captures=out.get("captures"),
+         replays=out.get("replays"), cache_hits=out["cache_hits"],
+         cache_misses=out["cache_misses"], n_dispatches=out["n_dispatches"],
+         median_ms={k: statistics.median(w) * 1e3 for k, w in kinds.items()},
+         prefix_cache=out.get("prefix_cache"),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def main(argv: list[str]) -> int:
@@ -1392,6 +1450,7 @@ def main(argv: list[str]) -> int:
     check_parity()
     check_parity_encdec()
     check_rows(cfg)
+    check_graphs(cfg)
     # each kernel's launches come from the serve run whose path uses it
     launches, tokens = {}, {}
     for form in FORM_KERNEL:
@@ -1469,6 +1528,25 @@ def check_parity() -> None:
                  max_abs_err=max(errs), tol=[rtol, atol], ok=True)
 
 
+def graph_counts(tag: str, out: dict, named: tuple[str, ...]) -> dict:
+    """On the card every program of a serve is captured on its first
+    dispatch and replayed after: captures = misses, no recapture (no
+    resident storage moves inside a serve), replays = the program dispatches
+    (the records not named as lane writes) less the captures. Returns the
+    graph fields of the serve's record; empty for a checkout of the port
+    without graphs (a `--turn` in an older one)."""
+    if "captures" not in out:
+        return {}
+    n_programs = sum(r.key not in named for r in out["records"])
+    want = {"captures": out["cache_misses"], "recaptures": 0,
+            "replays": n_programs - out["cache_misses"]}
+    got = {k: out[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag} graphs {got}, expected {want}")
+    return {"compile_s": out["compile_s"], **got,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
 def serve_main_path(form: str) -> tuple[dict, np.ndarray]:
     """Full tinyllama-1.1b in weight form `form` through the serve CLI's
     entry point; returns the kernels' launch counts from this run alone and
@@ -1481,6 +1559,7 @@ def serve_main_path(form: str) -> tuple[dict, np.ndarray]:
     native.reset_launch_counts()
     out = serve.run(serve_argv(cfg, SERVE_ROUNDS, form))
     launches = native.launch_counts()
+    graphs = graph_counts(f"{form} serve", out, NAMED_RECORDS)
 
     tokens = out["tokens"]
     n_lanes = len(SERVE_LENS.split(","))
@@ -1522,7 +1601,7 @@ def serve_main_path(form: str) -> tuple[dict, np.ndarray]:
          floor_measured_s=out["floor_measured_s"],
          dispatch_wall_s=out["dispatch_wall_s"], work_s=out["work_s"],
          routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
-         launches=launches,
+         launches=launches, **graphs,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches, tokens
 
@@ -1565,6 +1644,8 @@ def serve_prefix(cfg, timer) -> tuple[dict, int]:
         native.reset_launch_counts()
         out = serve.run(prefix_argv(cfg, pooled), prompts=rounds)
         launches = native.launch_counts()
+        graphs = graph_counts(f"prefix {'pooled' if pooled else 'pool-less'}", out,
+                              PREFIX_NAMED)
         for r, toks in enumerate(out["round_tokens"]):
             if toks.shape != (len(PREFIX_LENS), SERVE_GEN) or toks.min() < 0 or \
                     toks.max() >= cfg.vocab:
@@ -1597,7 +1678,8 @@ def serve_prefix(cfg, timer) -> tuple[dict, int]:
              prefix_cache=out.get("prefix_cache"), cache_hits=out["cache_hits"],
              cache_misses=out["cache_misses"], floor_measured_s=out["floor_measured_s"],
              routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
-             launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+             launches=launches, **graphs,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         # keep what the checks read, and drop the run's model before the next
         runs[pooled] = {"round_tokens": out["round_tokens"], "counts": counts,
                         "n_dispatches": out["n_dispatches"],
@@ -1714,6 +1796,233 @@ def check_rows(cfg) -> None:
     del model, params
 
 
+# ---------------------------------------------------------------------------
+# the graphs phase: every captured program kind, replay against eager
+# ---------------------------------------------------------------------------
+
+
+def _tree_leaves(tree) -> list:
+    return [leaf for _, leaf in leaves_with_path(tree)]
+
+
+def _clone_tree(tree):
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _random_cache(caches, gen) -> None:
+    """Fill a decode cache in place: random K/V, every slot valid at its own
+    index (a lane at position p attends slots 0..p)."""
+    for leaf in _tree_leaves(caches):
+        if leaf.dtype == torch.int32:
+            leaf.copy_(torch.arange(leaf.shape[-1], dtype=torch.int32,
+                                    device=leaf.device).expand(leaf.shape))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=leaf.device).to(leaf))
+
+
+def check_graph_replays(label: str, prog, make_args, mutable: tuple[int, ...],
+                        replays: int = 2) -> dict:
+    """Call `prog` (a `GraphProgram`) once (eager run and capture), then
+    `replays` times with new per-call inputs (`make_args(i)`): each replay's
+    outputs, the resident arguments it writes (`mutable`) and its launches
+    must equal, bit for bit and to the unit, an eager call of the same
+    function on the same inputs (the written arguments cloned first)."""
+    if not isinstance(prog, dispatch.GraphProgram):
+        raise AssertionError(f"graphs {label}: {type(prog).__name__} is no GraphProgram")
+    stats = prog.stats
+    before = (stats.captures, stats.replays)
+    prog(*make_args(0))
+    if stats.captures != before[0] + 1:
+        raise AssertionError(f"graphs {label}: the first call did not capture")
+    for i in range(1, replays + 1):
+        args = make_args(i)
+        eager_args = tuple(_clone_tree(a) if j in mutable else a for j, a in enumerate(args))
+        native.reset_launch_counts()
+        want = prog.fn(*eager_args)
+        torch.cuda.synchronize()
+        want_launches = native.launch_counts()
+        native.reset_launch_counts()
+        got = prog(*args)
+        torch.cuda.synchronize()
+        got_launches = native.launch_counts()
+        pairs = list(zip(_tree_leaves(got), _tree_leaves(want)))
+        pairs += [pair for j in mutable
+                  for pair in zip(_tree_leaves(args[j]), _tree_leaves(eager_args[j]))]
+        same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                   for a, b in pairs)
+        if not same or got_launches != want_launches:
+            raise AssertionError(f"graphs {label} replay {i}: bit_identical={same}, "
+                                 f"launches {got_launches} against eager {want_launches}")
+    if (stats.captures, stats.replays) != (before[0] + 1, before[1] + replays):
+        raise AssertionError(f"graphs {label}: captures {stats.captures}, replays "
+                             f"{stats.replays} (before {before})")
+    rec = {"program": label, "replays": replays, "bit_identical": True,
+           "launches_per_call": {k: n for k, n in got_launches.items() if n}}
+    emit("graphs", **rec)
+    return rec
+
+
+class DotCapture:
+    """`core.dispatch._capture` with the graph's node list kept: each graph
+    is dumped as DOT, so the graphs phase can show that no host-to-device
+    copy landed in a graph (it would replay from a host buffer that is long
+    gone). PyTorch refuses to capture a copy from pageable memory; a copy
+    from pinned memory would be captured, and its node reads "HtoD"."""
+
+    def __init__(self, directory: Path) -> None:
+        self.directory = directory
+        self.memcpy: list[str] = []
+        self.graphs = 0
+
+    def __call__(self, fn, args, device):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)     # kept for the dump
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            out = fn(*args)
+            graph.capture_end()
+        current.wait_stream(side)
+        path = self.directory / f"graph{self.graphs}.dot"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")          # the dump announces itself
+            graph.debug_dump(str(path))
+        self.memcpy += re.findall(r"MEMCPY[^\"]*", path.read_text())
+        path.unlink()
+        self.graphs += 1
+        return graph, out
+
+
+def check_graphs(cfg) -> None:
+    """Every program kind the serves capture, at full width and depth, held
+    replay against eager (`check_graph_replays`): tinyllama-1.1b prefill at
+    buckets 8 and 64 and the 8-lane decode step; the spec draft and verify
+    at K = 1 and 4 (shrink drafter), the tree draft and verify at K = 4 with
+    two branches, the joint catch-up step and the joint prefill; then
+    whisper-small's prefill (frames through the stem and the encoder) and
+    decode step. Every graph is dumped (`DotCapture`): none may hold a copy
+    from host memory."""
+    dump_dir = ROOT / "build" / "graphs"
+    dump_dir.mkdir(parents=True, exist_ok=True)
+    dot = DotCapture(dump_dir)
+    real_capture, dispatch._capture = dispatch._capture, dot
+    try:
+        run_graph_checks(cfg)
+    finally:
+        dispatch._capture = real_capture
+    host = [m for m in dot.memcpy if "Host" in m or "HtoD" in m]
+    emit("graphs_copies", graphs=dot.graphs, memcpy_nodes=len(dot.memcpy),
+         memcpy_kinds=sorted({m[:160] for m in dot.memcpy})[:8], host_to_device=len(host))
+    if host or not dot.graphs:
+        raise AssertionError(f"graphs: {len(host)} host copies in {dot.graphs} graphs: "
+                             f"{host[:2]}")
+
+
+def run_graph_checks(cfg) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vocab = cfg.vocab
+
+    def tokens(shape):
+        return torch.randint(0, vocab, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    def positions(lo, hi):
+        return torch.randint(lo, hi, (8,), generator=gen, device="cuda", dtype=torch.int32)
+
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    cache = ProgramCache()
+    for bucket in (8, 64):
+        batch = {"tokens": tokens((1, bucket))}
+        prog, _ = cache.compile(model.prefill, params, batch, per_call=(1,))
+        check_graph_replays(f"tinyllama prefill bucket {bucket}", prog,
+                            lambda i, b=bucket: (params, {"tokens": tokens((1, b))}), ())
+    caches = model.init_cache(8, SERVE_MAX_LEN)
+    _random_cache(caches, gen)
+    tok, pos = tokens((8, 1)), positions(32, SERVE_MAX_LEN - 8)
+    prog, _ = cache.compile(model.decode_step, params, caches, tok, pos, per_call=(2, 3))
+    check_graph_replays("tinyllama decode", prog,
+                        lambda i: (params, caches, tokens((8, 1)),
+                                   positions(32, SERVE_MAX_LEN - 8)), (1,))
+
+    sched = SpeculativeSchedule(model, params, cfg, n_slots=8, max_len=SERVE_MAX_LEN,
+                                stream=AsyncExecutionStream(cache, device="cuda"),
+                                draft="shrink", draft_branches=2, draft_depth=SPEC_DEPTH)
+    sched._ensure_caches()
+    sched.draft_caches = sched.drafter.model.init_cache(8, SERVE_MAX_LEN)
+    _random_cache(sched.caches, gen)
+    _random_cache(sched.draft_caches, gen)
+    dparams = sched.drafter.params
+
+    def p0():
+        return positions(32, SERVE_MAX_LEN - 2 * SPEC_DEPTH)
+
+    for k in (1, SPEC_DEPTH):
+        prog, _ = sched._draft_program(tok, pos, k)
+        check_graph_replays(f"spec draft K={k}", prog,
+                            lambda i: (dparams, sched.draft_caches, tokens((8, 1)), p0()),
+                            (1,))
+        prog, _ = sched._verify_program(tok, pos, tokens((8, k)), k)
+        check_graph_replays(f"spec verify K={k}", prog,
+                            lambda i, k=k: (params, sched.caches, tokens((8, 1)), p0(),
+                                            tokens((8, k))), (1,))
+    k, nbr = SPEC_DEPTH, 2
+    prog, _ = sched._draft_tree_program(tok, pos, k)
+    check_graph_replays(f"spec tree draft K={k} x{nbr}", prog,
+                        lambda i: (dparams, sched.draft_caches, tokens((8, 1)), p0()), (1,))
+
+    def tiled():
+        return tree_map(lambda leaf: leaf.repeat_interleave(nbr, dim=1), sched.draft_caches)
+
+    prog, _ = sched._verify_tree_program(tiled(), tok, pos, tokens((8, nbr, k)), k)
+    check_graph_replays(f"spec tree verify K={k} x{nbr}", prog,
+                        lambda i: (params, sched.caches, sched.draft_caches, tiled(),
+                                   tokens((8, 1)), p0(), tokens((8, nbr, k))), (1, 2))
+    prog, _ = sched._joint_program(tok, pos)
+    check_graph_replays("spec joint catch-up", prog,
+                        lambda i: (params, dparams, sched.caches, sched.draft_caches,
+                                   tokens((8, 1)), p0()), (2, 3))
+    batch = {"tokens": tokens((1, 64))}
+    prog, _ = cache.compile(sched._joint_prefill_fn, params, dparams, batch, per_call=(2,))
+    check_graph_replays("spec joint prefill bucket 64", prog,
+                        lambda i: (params, dparams, {"tokens": tokens((1, 64))}), ())
+    del sched, model, params, caches
+
+    wcfg = configs.get_config(ENCODER_ARCH)
+    wmodel = build_model(wcfg, KernelDispatcher(), device="cuda")
+    wparams = wmodel.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def wbatch(n):
+        return {"tokens": torch.randint(0, wcfg.vocab, (1, n), generator=gen, device="cuda",
+                                        dtype=torch.int32),
+                "frames": torch.randn((1,) + wcfg.frame_shape, generator=gen,
+                                      device="cuda").to(wmodel.dtype)}
+
+    prog, _ = cache.compile(wmodel.prefill, wparams, wbatch(16), per_call=(1,))
+    check_graph_replays("whisper prefill bucket 16", prog,
+                        lambda i: (wparams, wbatch(16)), ())
+    wcaches = wmodel.init_cache(8, 160)
+    _random_cache(wcaches, gen)
+    wtok = torch.randint(0, wcfg.vocab, (8, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    wpos = torch.full((8,), 100, dtype=torch.int32, device="cuda")
+    prog, _ = cache.compile(wmodel.decode_step, wparams, wcaches, wtok, wpos,
+                            per_call=(2, 3))
+    check_graph_replays(
+        "whisper decode", prog,
+        lambda i: (wparams, wcaches,
+                   torch.randint(0, wcfg.vocab, (8, 1), generator=gen, device="cuda",
+                                 dtype=torch.int32),
+                   torch.randint(16, 150, (8,), generator=gen, device="cuda",
+                                 dtype=torch.int32)), (1,))
+    st = cache.stats
+    emit("graphs_summary", captures=st.captures, replays=st.replays,
+         recaptures=st.recaptures, compile_s=st.compile_seconds,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if st.recaptures:
+        raise AssertionError(f"graphs: {st.recaptures} recaptures")
+
+
 def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
     """Full tinyllama-1.1b (fp16 form) through the speculative schedule with
     `draft` and `branches`; returns the launch counts of this run alone,
@@ -1734,6 +2043,7 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
     launches = native.launch_counts()
     engine = out["engine"]
     tag = f"spec {draft} x{branches}"
+    graphs = graph_counts(tag, out, ("spec_admit_slot", "spec_reset_slot"))
     if not np.array_equal(out["tokens"], want_tokens):
         bad = int((out["tokens"] != want_tokens).any(axis=1).sum())
         raise AssertionError(f"{tag}: {bad} of {len(want_tokens)} streams differ from the "
@@ -1788,7 +2098,8 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
                              for k, w in walls.items()},
          cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
          routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
-         launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+         launches=launches, **graphs,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches
 
 
@@ -1824,35 +2135,145 @@ def serve_early_exit(cfg, branches: int) -> dict:
     wall = time.perf_counter() - t0
     stream.close()
     n_requests = len(lens) * SERVE_ROUNDS
+    st = cache.stats
     return {"tokens": np.stack([r.tokens for r in results]), "engine": engine,
             "routes": model.dispatcher.census(), "records": list(stream.records),
-            "wall_s": wall, "tok_per_s": SERVE_GEN * n_requests / wall,
-            "cache_hits": cache.stats.hits, "cache_misses": cache.stats.misses,
+            "wall_s": wall, "compile_s": st.compile_seconds,
+            "tok_per_s": SERVE_GEN * n_requests / max(wall - st.compile_seconds, 1e-9),
+            "cache_hits": st.hits, "cache_misses": st.misses, "captures": st.captures,
+            "recaptures": st.recaptures, "replays": st.replays,
             **engine.stats(n_requests)}
 
 
-def profile_serve(label: str, argv: list[str]) -> None:
-    """One round of a serve run (the CLI's `argv`) with the profiler
-    tracing the device only: device time by kernel, and the device's busy
-    share between the first and the last kernel of the round (its complement
-    is the time the card sat idle waiting for the host). Tracing slows the
-    host a little, so the profiled round's wall is reported beside it."""
+# device-trace kernel names -> the port's kernels (one traced instance a
+# launch; flash's combine pass and specdec's accept pass are second kernels
+# of one launch and are not counted); the matmul loops by their producer
+TRACE_KERNELS = (("matmul_", None), ("flash_tile", "flash"), ("flash_split", "flash"),
+                 ("flash_simt", "flash"), ("decode_split", None),
+                 ("slice_argmax", "specdec+specdec_tree"), ("act_lut_kernel", "act_lut"),
+                 ("pool_kernel", "avg_pool+max_pool"))
+MATMUL_PRODUCERS = (("Sparse", "sparse"), ("Palette", "palette"), ("Conv", "conv2d"))
+
+
+def trace_kernel(name: str) -> str | None:
+    """The port's kernel (or pair of kernels sharing a body) that a traced
+    device kernel's demangled name belongs to; None for any other kernel."""
+    for key, kernel in TRACE_KERNELS:
+        if key not in name:
+            continue
+        if key == "matmul_":
+            return next((k for tag, k in MATMUL_PRODUCERS if tag in name), "anemm")
+        if key == "decode_split":
+            return "paged_decode_attention" if "PagedRows" in name else "decode_attention"
+        return kernel
+    return None
+
+
+def host_launches_by_trace_kernel(launches: dict) -> dict:
+    out: dict[str, int] = {}
+    for name, n in launches.items():
+        key = next((k for k in ("specdec+specdec_tree", "avg_pool+max_pool")
+                    if name in k.split("+")), name)
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def round_requests(argv: list[str], rid0: int) -> list[Request]:
+    """The requests of one round of the serve CLI's `argv`, drawn as
+    `serve.run` draws them (prompts from the seed, then an encoder-decoder's
+    frames)."""
+    opts = dict(zip(argv[::2], argv[1::2]))
+    cfg = configs.get_config(opts["--arch"])
+    lens = [int(x) for x in opts["--prompt-lens"].split(",")]
+    rng = np.random.default_rng(int(opts["--seed"]))
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    frames = [None] * len(lens)
+    if cfg.family == "encdec":
+        frames = [np.asarray(rng.normal(size=cfg.frame_shape), np.float32) for _ in lens]
+    return [Request(rid=rid0 + i, prompt=p, max_new_tokens=int(opts["--gen"]),
+                    frames=frames[i]) for i, p in enumerate(prompts)]
+
+
+def traced_round(engine, reqs: list[Request]) -> tuple:
+    """One round of `reqs` through `engine` under the profiler, tracing the
+    device only. Returns (results, wall, host-counted launches, device
+    events as (start, end, name))."""
+    native.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = serve.run(argv)
-    kernels = [(e.time_range.start, e.time_range.end,
-                e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-                .split("(")[0].split("<")[0])
-               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    # the served round starts at the first of the port's kernels (before it:
-    # weight init and the floor measurement)
-    ours = [s for s, _, n in kernels
-            if n.startswith(("repro::tile::", "flash_", "decode_fwd"))]
+        # the tracer misses the first kernels after it starts: let a few
+        # throwaway kernels take that, before the round
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(16):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        results = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return results, wall, launches, events
+
+
+def profile_serve(label: str, argv: list[str]) -> None:
+    """A serve run (the CLI's `argv`, one round: every program captured),
+    then its second round, the same requests, under the profiler tracing the
+    device only: on the card every program dispatch of that round is a
+    replay. Reports device time by kernel and the device's busy share
+    between the first and the last kernel of the round (its complement is
+    the time the card sat idle waiting for the host), and checks that the
+    trace holds exactly one instance of each of the port's kernels per
+    launch the host counted in the round (so the replays ran the kernels
+    and the counts are the device's). The tracer (CUPTI) loses a few kernel
+    records now and then, eager or replayed: a trace with fewer instances
+    than launches is taken again, on one more round of the same requests,
+    up to TRACE_ATTEMPTS rounds; a trace with more fails at once. Tracing
+    slows the host a little, so the profiled round's wall is reported
+    beside it."""
+    out = serve.run(argv)
+    engine = out["engine"]
+    reqs = round_requests(argv, rid0=len(out["results"]))
+    before = (out.get("captures"), engine.cache.stats.misses)
+    lost = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        results, wall, launches, events = traced_round(engine, reqs)
+        tokens = np.stack([r.tokens for r in results])
+        if not np.array_equal(tokens, out["tokens"]):
+            raise AssertionError(f"profile {label}: a traced round's tokens differ from the "
+                                 "first round's")
+        traced: dict[str, int] = {}
+        for _, _, name in events:
+            kernel = trace_kernel(name)
+            if kernel is not None:
+                traced[kernel] = traced.get(kernel, 0) + 1
+        host = {k: n for k, n in host_launches_by_trace_kernel(launches).items() if n}
+        if traced == host:
+            break
+        if any(n > host.get(k, 0) for k, n in traced.items()):
+            raise AssertionError(f"profile {label}: device-trace kernel instances {traced} "
+                                 f"exceed the host-counted launches {host}")
+        lost.append({k: n - traced.get(k, 0) for k, n in host.items() if traced.get(k, 0) != n})
+    else:
+        raise AssertionError(f"profile {label}: no traced round of {TRACE_ATTEMPTS} held "
+                             f"every launch; records lost per round {lost}")
+    stats = engine.cache.stats
+    if before[0] is not None and (stats.captures, stats.misses) != before:
+        raise AssertionError(f"profile {label}: the traced rounds captured "
+                             f"{stats.captures - before[0]} programs; every one should replay")
+    if isinstance(engine.stream, AsyncExecutionStream):
+        engine.stream.close()
+    ours = [s for s, _, n in events if trace_kernel(n) is not None]
     first = min(ours) if ours else 0.0
     spans, by_name = [], {}
-    for start, end, name in kernels:
-        if start >= first:
-            spans.append((start, end))
-            by_name[name] = by_name.get(name, 0.0) + (end - start)
+    for start, end, name in events:
+        if start < first:
+            continue
+        spans.append((start, end))
+        short = name.removeprefix("void ").replace("(anonymous namespace)::", "") \
+            .split("(")[0].split("<")[0]
+        by_name[short] = by_name.get(short, 0.0) + (end - start)
     busy = 0.0
     if spans:
         spans.sort()
@@ -1865,12 +2286,14 @@ def profile_serve(label: str, argv: list[str]) -> None:
                 cur_e = max(cur_e, e)
         busy += cur_e - cur_s
         window = max(e for _, e in spans) - first
+    n_tokens = sum(r.tokens.size for r in results)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", run=label, device_events=len(spans),
-         profiled_wall_s=out["wall_s"], profiled_tok_per_s=out["tok_per_s"],
+    emit("profile", run=label, round=2, trace_attempts=attempt, records_lost=lost,
+         device_events=len(spans), profiled_wall_s=wall, profiled_tok_per_s=n_tokens / wall,
          device_busy_ms=busy / 1e3,
          device_busy_share=busy / window if spans else None,
          window_ms=window / 1e3 if spans else None,
+         trace_kernel_instances=traced, host_launches=host,
          device_ms_by_kernel={k: v / 1e3 for k, v in top})
 
 
@@ -1935,6 +2358,7 @@ def serve_encoder(timer) -> dict:
     out = serve.run(encoder_argv(SERVE_ROUNDS))
     launches = native.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs = graph_counts("encoder serve", out, NAMED_RECORDS)
 
     tokens = out["tokens"]
     n_lanes = len(ENCODER_LENS.split(","))
@@ -1969,7 +2393,7 @@ def serve_encoder(timer) -> dict:
          cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
          floor_measured_s=out["floor_measured_s"], dispatch_wall_s=out["dispatch_wall_s"],
          work_s=out["work_s"], routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
-         launches=launches, peak_memory_gb=peak_gb)
+         launches=launches, **graphs, peak_memory_gb=peak_gb)
 
     # the stem fused and unfused: each request's frames encoded alone (as an
     # admission encodes them), same bits, 2 more act_lut launches each

@@ -3,39 +3,52 @@
 After `src/repro/core/dispatch.py`. The pieces this port's serving path uses:
 
   * `ProgramCache` (reference :68) — programs keyed by function identity,
-    argument shapes and dtypes, and options, with hit/miss statistics. The
-    port runs eagerly, so a "program" is the function itself; the cache
-    keeps the reference's compile accounting so the schedulers' program
-    counts compare one for one. CUDA graphs arrive in a later change.
+    argument shapes and dtypes, and options, with hit/miss statistics,
+    `is_new_compile_required`, `force_recompilation` and `purge`. The
+    reference compiles a miss once (`lowered.compile()`); the port's
+    counterpart is a CUDA graph. On the card `compile` returns a
+    `GraphProgram`: its first dispatch runs the function eagerly (that run
+    is the dispatch's result, and it builds any missing kernel), then
+    captures it into a `torch.cuda.CUDAGraph` with a private memory pool;
+    every later dispatch copies its per-call inputs into the graph's static
+    buffers and replays the graph as one launch. Capture time, and nothing
+    else, goes to `CacheStats.compile_seconds`. On the CPU a program is the
+    function itself, run eagerly.
   * `DispatchRecord` / `ExecutionStream` (:126, :145) — every model
     dispatch is timed to completion (`torch.cuda.synchronize` on the card)
     and split into `work_s = max(0, wall - floor)`, with the floor measured
-    on the stream's device, not taken from a table.
+    on the stream's device, not taken from a table. A capture's time is
+    left out of its dispatch's wall.
   * `AsyncExecutionStream` (:273) — encode -> submit -> sync with a bounded
     in-flight window: `submit` hands programs over without waiting, a
     daemon thread confirms them in submission order through CUDA events.
+    It drains its window before a program captures.
   * `KernelRoute` / `KernelDispatcher` (:413, :427) — the routing rule of
     the port: a tensor on a CUDA device routes to the hand-written kernel
     (backend "cuda"), a tensor on the CPU to the kernel's plain PyTorch
     version (backend "torch", reason "cpu requested"). Any other device, and
     a dtype outside a kernel's surface on CUDA, raises: nothing reroutes.
+    Routes taken inside a capture are recorded with the graph and counted
+    at each replay, as the kernels' launches are (`kernels/native.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import hashlib
 import queue as queue_mod
 import threading
 import time
 import weakref
 from collections import Counter, deque
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import torch
 
 from repro_torch.core import hal
-from repro_torch.tree import flatten_node
+from repro_torch.tree import flatten_node, leaves_with_path, tree_map
 
 
 def _spec(x: Any) -> Any:
@@ -62,12 +75,210 @@ def _spec(x: Any) -> Any:
 class CacheStats:
     hits: int = 0
     misses: int = 0
+    compile_seconds: float = 0.0   # on the card: CUDA-graph capture time only
+    captures: int = 0              # graphs captured: misses' first dispatches,
+    recaptures: int = 0            # and, of those, new storage of a resident argument
+    replays: int = 0               # dispatches that replayed a graph
+
+
+def _leaves(tree: Any) -> list:
+    """The leaves of an argument tree, in the order `tree_map` rebuilds it."""
+    return [leaf for _, leaf in leaves_with_path(tree)]
+
+
+def _on_cuda(args: tuple) -> bool:
+    return any(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+               for t in _leaves(args))
+
+
+def _bound(t: Any) -> Any:
+    """What a graph binds of a resident leaf: a tensor's storage (address,
+    shape, strides, dtype), any other value itself."""
+    if isinstance(t, torch.Tensor):
+        return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+    return ("value", type(t).__name__, repr(t))
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One capture of a program: the graph, the per-call static inputs (one
+    per argument leaf; None for a resident leaf, bound by storage), the
+    output tree's structure and its leaves' sources (a static output, or
+    the index of the argument leaf returned), and the launches and routes
+    one replay makes."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list
+    outputs: Any
+    sources: list
+    launches: Counter
+    routes: Counter
+
+
+class GraphProgram:
+    """A program on the card: captured into a CUDA graph on its first
+    dispatch for each binding of its resident arguments, replayed after.
+
+    `per_call` names the arguments (by position) whose values change from
+    call to call: token ids, positions, a prefill batch, drafts. Each of
+    their tensors is copied into the graph's static input before a replay
+    (not when it already is that buffer). Every other argument is resident
+    (params, caches, arenas): bound by storage, never copied. A call whose
+    resident tensors lie elsewhere (another address, shape, stride or dtype)
+    than any capture's gets a capture of its own; it never replays against
+    storage it was not captured on.
+
+    A replay overwrites the graph's static outputs: an output that must
+    outlive the next dispatch of the same program is read or cloned before
+    it. An output that is one of the arguments (a cache written in place)
+    comes back as the caller's own tensor.
+
+    The first dispatch of a binding runs the function eagerly on the
+    current stream and returns that run's result; then it captures the same
+    call on a side stream (global capture mode: the capture executes
+    nothing, and any unsafe CUDA call in the process fails it). A failed
+    capture or replay raises; nothing reruns eagerly."""
+
+    def __init__(self, fn: Callable, per_call: tuple[int, ...], stats: CacheStats) -> None:
+        self.fn = fn
+        self.per_call = frozenset(per_call)
+        self.stats = stats
+        self.capture_seconds = 0.0
+        self._graphs: dict[tuple, _Graph] = {}
+
+    def _flat(self, args: tuple) -> tuple[list, list[bool]]:
+        leaves, per_call = [], []
+        for i, a in enumerate(args):
+            more = _leaves(a)
+            leaves += more
+            per_call += [i in self.per_call] * len(more)
+        return leaves, per_call
+
+    @staticmethod
+    def _binding(leaves: list, per_call: list[bool]) -> tuple:
+        """The resident leaves' storage, and every non-tensor value (a
+        capture bakes those in)."""
+        return tuple(_bound(t) for t, pc in zip(leaves, per_call)
+                     if not pc or not isinstance(t, torch.Tensor))
+
+    def needs_capture(self, *args) -> bool:
+        """Would this call capture (no graph is bound to its resident
+        storage yet)?"""
+        leaves, per_call = self._flat(args)
+        return self._binding(leaves, per_call) not in self._graphs
+
+    def release(self) -> None:
+        """Drop every graph and its static buffers (the private pools go
+        back to the allocator); the next call captures again."""
+        for g in self._graphs.values():
+            g.graph.reset()
+        self._graphs.clear()
+
+    def __call__(self, *args):
+        leaves, per_call = self._flat(args)
+        binding = self._binding(leaves, per_call)
+        g = self._graphs.get(binding)
+        if g is None:
+            return self._run_and_capture(args, leaves, per_call, binding)
+        for t, buf in zip(leaves, g.inputs):
+            if buf is None:
+                continue
+            if t.shape != buf.shape or t.dtype != buf.dtype:
+                raise ValueError(f"per-call input {tuple(t.shape)} {t.dtype} does not fit "
+                                 f"the captured {tuple(buf.shape)} {buf.dtype}")
+            if t.data_ptr() != buf.data_ptr() or t.stride() != buf.stride():
+                buf.copy_(t)
+        g.graph.replay()
+        _count_routes(g.routes)
+        from repro_torch.kernels import native   # lazy: core imports alone
+        native.add_launches(g.launches)
+        self.stats.replays += 1
+        it = iter(g.sources)
+        return tree_map(lambda _: _source(next(it), leaves), g.outputs)
+
+    def _run_and_capture(self, args, leaves, per_call, binding):
+        from repro_torch.kernels import native
+
+        out = self.fn(*args)                         # eager: the dispatch's result
+        inputs = [t.clone() if pc and isinstance(t, torch.Tensor) else None
+                  for t, pc in zip(leaves, per_call)]
+        static = [t if buf is None else buf for t, buf in zip(leaves, inputs)]
+        cargs = _rebuild(args, static)
+        device = next(t.device for t in leaves if isinstance(t, torch.Tensor))
+        t0 = time.perf_counter()
+        # a garbage collection during the capture could destroy another
+        # program's graph, a CUDA call the capture forbids (it invalidates it)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with native.recording_launches() as launches, _recording_routes() as routes:
+                graph, cout = _capture(self.fn, cargs, device)
+        finally:
+            if collecting:
+                gc.enable()
+        dt = time.perf_counter() - t0
+        self.capture_seconds += dt
+        self.stats.compile_seconds += dt
+        self.stats.captures += 1
+        self.stats.recaptures += bool(self._graphs)
+        # an output that is an argument is not held (a resident cache must
+        # not outlive its owner through the graph): the replay returns the
+        # caller's leaf at that index
+        by_id = {id(t): i for i, t in enumerate(static) if isinstance(t, torch.Tensor)}
+        sources = [("arg", by_id[id(t)]) if id(t) in by_id else ("out", t)
+                   for t in _leaves(cout)]
+        self._graphs[binding] = _Graph(graph, inputs, tree_map(lambda _: None, cout),
+                                       sources, launches, routes)
+        return out
+
+
+def _source(src: tuple, leaves: list) -> Any:
+    """An output leaf at replay: the caller's argument leaf it is, else the
+    static output (or non-tensor value) itself."""
+    kind, value = src
+    return leaves[value] if kind == "arg" else value
+
+
+def _rebuild(args: tuple, new_leaves: list) -> tuple:
+    it = iter(new_leaves)
+    return tuple(tree_map(lambda _: next(it), a) for a in args)
+
+
+def _capture(fn: Callable, args: tuple, device: torch.device):
+    """Capture `fn(*args)` into a CUDA graph (its own private memory pool)
+    on a side stream (a capture may not run on the default one) that waits
+    for the current one; the current stream then waits for the side
+    stream. Returns (graph, outputs)."""
+    graph = torch.cuda.CUDAGraph()
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            out = fn(*args)
+        except BaseException:
+            _abandon(graph)
+            raise
+        graph.capture_end()
+    current.wait_stream(side)
+    return graph, out
+
+
+def _abandon(graph: torch.cuda.CUDAGraph) -> None:
+    """End a capture whose function raised, so the stream leaves capture
+    mode; the function's own error is the one raised."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
 
 
 class ProgramCache:
     """Program cache keyed like the reference's content hash: the same
     function on arguments of the same shapes, dtypes and options resolves to
-    the same key; a change of any of them is a new program (a miss)."""
+    the same key; a change of any of them is a new program (a miss). A hit
+    returns the stored program, a `GraphProgram` on the card."""
 
     def __init__(self) -> None:
         self._programs: dict[str, Callable] = {}
@@ -76,7 +287,8 @@ class ProgramCache:
     @staticmethod
     def key(fn: Callable, args_spec: tuple, options: str = "") -> str:
         # bound methods are re-created per attribute access: key on the
-        # underlying function + the receiver's identity
+        # underlying function + the receiver's identity (the stored program
+        # holds the receiver, so the id is not recycled while it lives)
         func = getattr(fn, "__func__", fn)
         receiver = id(getattr(fn, "__self__", None))
         body = (f"{func.__module__}.{func.__qualname__}@{receiver}|"
@@ -84,16 +296,35 @@ class ProgramCache:
         inner = hashlib.sha256(body.encode()).digest()
         return hashlib.sha256(inner).hexdigest()
 
-    def compile(self, fn: Callable, *args_spec,
-                options: str = "") -> tuple[Callable, str]:
-        """compile-or-hit: returns (program, key)."""
+    def compile(self, fn: Callable, *args_spec, options: str = "",
+                per_call: tuple[int, ...] = (),
+                force_recompilation: bool = False) -> tuple[Callable, str]:
+        """compile-or-hit: returns (program, key). `per_call` names the
+        arguments whose values change per dispatch (`GraphProgram`); the rest
+        are resident. `force_recompilation` rewrites the entry and counts a
+        miss, as the reference's does."""
         key = self.key(fn, args_spec, options)
-        if key in self._programs:
+        if not force_recompilation and key in self._programs:
             self.stats.hits += 1
             return self._programs[key], key
         self.stats.misses += 1
-        self._programs[key] = fn
-        return fn, key
+        program = GraphProgram(fn, per_call, self.stats) if _on_cuda(args_spec) else fn
+        self._programs[key] = program
+        return program, key
+
+    def is_new_compile_required(self, fn: Callable, *args_spec, options: str = "") -> bool:
+        return self.key(fn, args_spec, options) not in self._programs
+
+    def purge(self) -> None:
+        """Forget every program and release its graphs and their memory."""
+        released = False
+        for program in self._programs.values():
+            if isinstance(program, GraphProgram):
+                program.release()
+                released = True
+        self._programs.clear()
+        if released:
+            torch.cuda.empty_cache()
 
 
 @dataclasses.dataclass
@@ -114,6 +345,10 @@ class DispatchRecord:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _capture_seconds(program: Callable) -> float:
+    return getattr(program, "capture_seconds", 0.0)
 
 
 def measure_dispatch_floor(device: str | torch.device = "cuda",
@@ -159,10 +394,14 @@ class ExecutionStream:
         output per encoded op, in encode order."""
         outs = []
         for program, args, key, batch in self._encoded:
+            captured = _capture_seconds(program)
             t0 = time.perf_counter()
             out = program(*args)
             _sync(self.device)
             t1 = time.perf_counter()
+            # a capture is compile time (`CacheStats.compile_seconds`): the
+            # record starts after it
+            t0 += _capture_seconds(program) - captured
             wall = t1 - t0
             self.records.append(DispatchRecord(
                 key, wall, max(0.0, wall - self.floor_s), self.floor_s, batch,
@@ -283,15 +522,23 @@ class AsyncExecutionStream(ExecutionStream):
         self._ensure_drainer()
         outs = []
         for program, args, key, batch in self._encoded:
+            # no event may be waited on (nor destroyed, by the drain thread
+            # dropping the last reference) during a capture: drain first and
+            # hold the confirmed submissions until the program returned
+            held = self._drain() if isinstance(program, GraphProgram) and \
+                program.needs_capture(*args) else []
             self._throttle()
             with self._lock:
                 depth = len(self._pending)
+            captured = _capture_seconds(program)
             t_sub = time.perf_counter()
             out, event, error = None, None, None
             try:
                 out = program(*args)
             except Exception as e:   # kept for sync(), like a device fault
                 error = e
+            t_sub += _capture_seconds(program) - captured
+            del held
             if self.device.type == "cuda" and error is None:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
@@ -305,6 +552,15 @@ class AsyncExecutionStream(ExecutionStream):
             outs.append(out)
         self._encoded.clear()
         return outs
+
+    def _drain(self) -> list[_Inflight]:
+        """Wait until every submission is confirmed, raising nothing: errors
+        stay for `sync`. Returns the confirmed submissions."""
+        with self._lock:
+            handles = list(self._pending)
+        for h in handles:
+            h.done.wait()
+        return handles
 
     def sync(self) -> list:
         """Barrier: wait for every in-flight submission. Returns the outputs
@@ -354,6 +610,25 @@ class KernelRoute:
         return self.backend == "cuda"
 
 
+# open captures' route tallies, innermost last: (dispatcher, route) -> n
+_ROUTE_TALLIES: list[Counter] = []
+
+
+@contextlib.contextmanager
+def _recording_routes() -> Iterator[Counter]:
+    tally: Counter = Counter()
+    _ROUTE_TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _ROUTE_TALLIES.pop()
+
+
+def _count_routes(tally: Counter) -> None:
+    for (dispatcher, route), n in tally.items():
+        dispatcher.routes[route] += n
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -368,6 +643,14 @@ class KernelDispatcher:
     def __init__(self, target: hal.Target | None = None) -> None:
         self.target = target or hal.H100
         self.routes: Counter[KernelRoute] = Counter()
+
+    def count(self, route: KernelRoute) -> None:
+        """Count one route taken; inside a capture, record it with the graph
+        instead (each replay counts it)."""
+        if _ROUTE_TALLIES:
+            _ROUTE_TALLIES[-1][self, route] += 1
+        else:
+            self.routes[route] += 1
 
     def census(self) -> dict[tuple[str, str], int]:
         """Route counts by (kernel, backend)."""

@@ -14,11 +14,16 @@ a missing `nvcc` or a failed build is an error, never a silent fallback.
 
 Launch counts: each wrapper calls `count_launch(name)` right after its
 kernel launched, and only there, so a run can prove which kernels its main
-path went through (`launch_counts()`, `reset_launch_counts()`).
+path went through (`launch_counts()`, `reset_launch_counts()`). A CUDA-graph
+capture launches nothing: inside `recording_launches()` (the program
+cache's capture) a launch is recorded in the capture's tally instead of
+counted, and each replay of the graph adds that tally (`add_launches`), so
+the counts stay those of the forwards actually run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,6 +32,7 @@ import subprocess
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Iterator
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -82,10 +88,28 @@ KERNELS: dict[str, tuple[str, str, list]] = {
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Counter = Counter()
+_TALLIES: list[Counter] = []     # open captures, innermost last
 
 
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    (_TALLIES[-1] if _TALLIES else _LAUNCHES)[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Counter]:
+    """Record the launches made inside into the yielded tally instead of
+    counting them: what a CUDA-graph capture does, since it runs nothing."""
+    tally: Counter = Counter()
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.pop()
+
+
+def add_launches(tally: Counter) -> None:
+    """Count a recorded tally once: one replay of the captured launches."""
+    _LAUNCHES.update(tally)
 
 
 def launch_counts() -> dict[str, int]:

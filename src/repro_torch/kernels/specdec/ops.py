@@ -4,7 +4,7 @@ After `src/repro/kernels/specdec/ops.py`. `seeded_scores` turns target
 logits into the rows the verify/accept kernels reduce: for greedy streams
 the raw fp32 logits, so the first-index argmax is the host's greedy pick.
 Seeded categorical scores (gumbel-perturbed by `jax.random`'s threefry
-chain) wait for the port of that generator (ROADMAP A.16).
+chain) wait for the port of that generator (ROADMAP A.2).
 
 `verify_accept` / `verify_accept_tree` resolve through the dispatcher's
 `specdec` / `specdec_tree` rows: on a CUDA tensor the hand-written kernel,
@@ -28,7 +28,7 @@ def seeded_scores(logits: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "categorical":
         raise NotImplementedError(
             "categorical scores need jax.random's threefry fold_in and gumbel in "
-            "torch (ROADMAP A.16)")
+            "torch (ROADMAP A.2)")
     raise ValueError(f"unknown sampling mode {mode!r}")
 
 

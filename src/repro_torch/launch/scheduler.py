@@ -20,7 +20,10 @@ the reference's keys — program keys from the `ProgramCache`, and
 "admit_slot", "reset_slot", "merge_prefill", "prefix_admit", "pool_insert"
 — so dispatch counts and program misses compare one for one with the
 reference. Lane and arena writes update the resident decode cache and the
-pool's arenas in place: the reference's programs donate them.
+pool's arenas in place: the reference's programs donate them. On the card
+the prefill and decode programs replay as CUDA graphs
+(`core.dispatch.GraphProgram`); the lane writes run eagerly, a few launches
+an admission, as the reference jits them beside its cache.
 """
 
 from __future__ import annotations
@@ -266,16 +269,23 @@ class _SchedulerBase:
         return batch
 
     def _prefill_program(self, batch: dict):
-        return self.cache.compile(self.model.prefill, self.params, batch)
+        """One program per bucket (the batch's shapes). Per call: the batch
+        (token ids, an encoder-decoder's frames); resident: the params. Its
+        caches are the graph's outputs on the card, overwritten by the next
+        prefill of the bucket: admission copies them into the lane (and the
+        pool's arenas) first."""
+        return self.cache.compile(self.model.prefill, self.params, batch, per_call=(1,))
 
     def _decode_program(self, caches, tok, pos):
         """Compile-or-hit the decode program, memoized by the (token, pos)
-        shapes: cache shapes are fixed per scheduler."""
+        shapes: cache shapes are fixed per scheduler, so one graph serves
+        every step. Per call: token and positions; resident: the params and
+        the decode cache (written in place, as the reference donates it)."""
         sig = (tuple(tok.shape), str(tok.dtype), tuple(pos.shape), str(pos.dtype))
         hit = self._decode_memo.get(sig)
         if hit is None:
             hit = self.cache.compile(self.model.decode_step, self.params, caches,
-                                     tok, pos)
+                                     tok, pos, per_call=(2, 3))
             self._decode_memo[sig] = hit
         return hit
 

@@ -31,10 +31,14 @@ always the target's picks, so greedy streams are token-exact against
     is not positional raises.
   * **Stream** — both dispatches go on an `AsyncExecutionStream`: the draft
     is submitted without waiting, the verify takes its live proposal tensor,
-    and the host syncs once per window to read the accept lengths.
+    and the host syncs once per window to read the accept lengths. On the
+    card every program (draft, verify, tree draft and verify, joint
+    catch-up and prefill; one per memo entry) replays as a CUDA graph: the
+    draft's outputs are copied into the verify graph's static inputs, and
+    the rollback's index writes are device ops, captured with the rest.
 
-Loading a distilled drafter waits for the checkpoint reader (ROADMAP A.1);
-categorical sampling for `jax.random`'s generator in torch (A.16).
+Loading a distilled drafter waits for the checkpoint reader (ROADMAP A.6);
+categorical sampling for `jax.random`'s generator in torch (A.2).
 """
 
 from __future__ import annotations
@@ -313,7 +317,7 @@ class SpeculativeSchedule(ContinuousSchedule):
                           (k, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.drafter.params,
                                                      self.draft_caches, tok, p0,
-                                                     options=f"k={k}"))
+                                                     options=f"k={k}", per_call=(2, 3)))
 
     def _verify_program(self, tok, p0, drafts, k: int):
         """K+1 target steps teacher-forced on the proposals, the `specdec`
@@ -340,7 +344,8 @@ class SpeculativeSchedule(ContinuousSchedule):
         return self._memo(self._verify_memo, self._verify_keys,
                           (k, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.params, self.caches, tok,
-                                                     p0, drafts, options=f"k={k}"))
+                                                     p0, drafts, options=f"k={k}",
+                                                     per_call=(2, 3, 4)))
 
     def _draft_tree_program(self, tok, p0, k: int):
         """The tree window's draft: step 0 on the B lanes ranks the drafter's
@@ -371,20 +376,23 @@ class SpeculativeSchedule(ContinuousSchedule):
                           (k, nbr, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.drafter.params,
                                                      self.draft_caches, tok, p0,
-                                                     options=f"k={k} nbr={nbr}"))
+                                                     options=f"k={k} nbr={nbr}",
+                                                     per_call=(2, 3)))
 
     def _verify_tree_program(self, dcaches_tiled, tok, p0, drafts, k: int):
         """One dispatch scores the whole tree: the target's caches tile to
         B*nbr rows, K+1 steps run every branch teacher-forced, the
         `specdec_tree` kernel picks each lane's winning branch, and the
         caches keep that branch's rows, rolled back past its accepted prefix.
-        The drafter's caches keep the winner's rows too, without rollback (a
-        dented proposal context costs acceptance, never a token)."""
+        The drafter's caches keep the winner's rows of the draft's tiled
+        caches too, without rollback (a dented proposal context costs
+        acceptance, never a token). Both resident caches take the winners'
+        rows in place, so every window binds the same storage."""
         nbr = self.draft_branches
         model, vocab = self.model, self.cfg.vocab
         mode, disp = self.sampler.mode, self.model.dispatcher
 
-        def fused(params, caches, dcaches, tok0, p0, drafts):
+        def fused(params, caches, dcaches, dtiled, tok0, p0, drafts):
             leaves = _positional_leaves(caches)
             # every branch clobbers the same slots: save them per lane, untiled
             saved = [_gather_slots(leaf, _window_slots(leaf, p0, k)) for leaf in leaves]
@@ -401,16 +409,21 @@ class SpeculativeSchedule(ContinuousSchedule):
             samples, accept, branch = specdec_ops.verify_accept_tree(
                 scores.reshape(b, nbr, k + 1, scores.shape[-1]), drafts, dispatcher=disp)
             win = torch.arange(b, device=branch.device) * nbr + branch.long()
-            caches = tree_map(lambda leaf: leaf.index_select(1, win), tiled)
+            caches = tree_map(lambda dst, src: dst.copy_(src.index_select(1, win)),
+                              caches, tiled)
             _restore_rejected(_positional_leaves(caches), saved, p0, accept, k)
-            dsel = tree_map(lambda leaf: leaf.index_select(1, win), dcaches)
-            return caches, dsel, samples, accept, branch
+            dcaches = tree_map(lambda dst, src: dst.copy_(src.index_select(1, win)),
+                               dcaches, dtiled)
+            return caches, dcaches, samples, accept, branch
 
+        # per call: the draft's tiled caches, token, positions and drafts
         return self._memo(self._verify_memo, self._verify_keys,
                           (k, nbr, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.params, self.caches,
-                                                     dcaches_tiled, tok, p0, drafts,
-                                                     options=f"k={k} nbr={nbr}"))
+                                                     self.draft_caches, dcaches_tiled,
+                                                     tok, p0, drafts,
+                                                     options=f"k={k} nbr={nbr}",
+                                                     per_call=(3, 4, 5, 6)))
 
     def _joint_program(self, tok, pos):
         """Prompt catch-up: one dispatch steps target AND drafter on the same
@@ -426,7 +439,7 @@ class SpeculativeSchedule(ContinuousSchedule):
                 return caches, dcaches, lg
 
             hit = self.cache.compile(fused, self.params, self.drafter.params, self.caches,
-                                     self.draft_caches, tok, pos)
+                                     self.draft_caches, tok, pos, per_call=(4, 5))
             self._joint_memo[sig] = hit
         return hit
 
@@ -446,7 +459,7 @@ class SpeculativeSchedule(ContinuousSchedule):
         else:
             batch = {"tokens": self._tokens(req.prompt[None, :bucket])}
             prefill, pkey = self.cache.compile(self._joint_prefill_fn, self.params,
-                                               self.drafter.params, batch)
+                                               self.drafter.params, batch, per_call=(2,))
             self.stream.encode_operation(prefill, (self.params, self.drafter.params, batch),
                                          pkey, batch=1)
             pf_t, logits, pf_d = self.stream.execute_sync()[0]
@@ -565,8 +578,9 @@ class SpeculativeSchedule(ContinuousSchedule):
             dtiled, drafts = self._submit()
             self.draft_steps += k + 1
             prog, vkey = self._verify_tree_program(dtiled, tokj, p0j, drafts, k)
-            self.stream.encode_operation(prog, (self.params, self.caches, dtiled, tokj, p0j,
-                                                drafts), vkey, batch=len(active))
+            self.stream.encode_operation(prog, (self.params, self.caches, self.draft_caches,
+                                                dtiled, tokj, p0j, drafts), vkey,
+                                         batch=len(active))
             self.caches, self.draft_caches, samples, accept, branch = self._submit()
             self.window_kinds["tree"] += 1
         else:

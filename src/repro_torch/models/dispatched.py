@@ -217,7 +217,7 @@ def route_and_run(disp: KernelDispatcher, name: str, x: torch.Tensor,
     """One op-by-device cell: resolve by `x`'s device and dtype, record the
     route, run the winning leg."""
     route = disp.resolve(name, x)
-    disp.routes[route] += 1
+    disp.count(route)
     return native() if route.native else oracle()
 
 
