@@ -74,18 +74,28 @@ printing one JSON line for each:
                equal bit for bit (a tree verify window runs 16 rows where
                decode runs 8, and the spec streams must equal the continuous
                ones);
-  6. graphs  — every program kind the serves capture into CUDA graphs
+  6. sampling — jax's threefry chain (`core.prng`) on the card against
+               the same code on the CPU: the known key data of PRNGKey(0)
+               -> fold_in(3) -> fold_in(17), the (rid, pos) keys, 32-bit
+               bits and uniforms of 8 rows of 32000 bit for bit, gumbel
+               within rtol = atol = 1e-6, categorical draws and the
+               `TokenSampler`'s picks over (8, 32000) fp32 rows equal;
+  7. graphs  — every program kind the serves capture into CUDA graphs
                (`core.dispatch.GraphProgram`), at full size: tinyllama-1.1b
                prefill at buckets 8 and 64 and the 8-lane decode step; the
                spec draft and verify at K = 1 and 4, the tree draft and
                verify (K = 4, two branches), the joint catch-up and the
-               joint prefill; whisper-small's prefill and decode. Each is
+               joint prefill; the categorical spec draft, verify and tree
+               draft (the threefry and gumbel ops inside the graphs); the
+               slo schedule's fused step, greedy and categorical; the
+               chunk program (C = 64, a random lane's staging row);
+               whisper-small's prefill and decode. Each is
                called once (eager run, then the capture) and replayed twice
                with new per-call inputs; every replay's outputs, the caches
                it writes and its launch counts must equal an eager call of
                the same function on the same inputs, bit for bit; no graph
                may hold a host-to-device copy (each dumped as DOT);
-  7. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
+  8. serve   — full-width, full-depth tinyllama-1.1b (random weights from a
                seed, bf16) served by the serve CLI's entry point through the
                continuous schedule, once per weight form: fp16 (dense, anemm),
                int4_palette (palette) and sparse (sparse), each packed on the
@@ -97,13 +107,13 @@ printing one JSON line for each:
                dispatches less the captures (this and the capture seconds,
                `compile_s`, out of tok/s, and the peak memory reported for
                every serve phase);
-  8. profile — each serve once more (one round), then its second round
+  9. profile — each serve once more (one round), then its second round
                under torch.profiler, every program a replay: device time by
                kernel, the device's busy share, and the trace's instances of
                each of the port's kernels, which must equal the launches the
                host counted in that round (the tracer drops a record now and
                then: such a round is traced again, up to 5 rounds);
-  9. prefix  — the same model (fp16 form) served twice by the serve CLI's
+  10. prefix — the same model (fp16 form) served twice by the serve CLI's
                entry point on 8 lanes, 16 requests over two rounds, each
                round one 256-token system prompt (drawn from the seed)
                followed by unique tails (prompts 264..504, 32 tokens each):
@@ -121,7 +131,7 @@ printing one JSON line for each:
                pages): bit for bit equal to `decode_attention(bk=16)` on the
                gathered pages and within tolerance of its plain version,
                timed as the other kernels are;
-  10. spec   — the same model and requests (fp16 form) through the
+  11. spec   — the same model and requests (fp16 form) through the
                speculative schedule (`--schedule spec --draft-depth 4`) three
                ways: `--draft self`, `--draft shrink`, and `--draft shrink
                --draft-branches 2`; then once more with two branches and an
@@ -137,7 +147,26 @@ printing one JSON line for each:
                must make one verify and (if it drafted) one draft dispatch,
                and every kernel must have launched exactly as often as the
                run's forwards and windows say;
-  11. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
+  12. slo    — the same model and requests (fp16 form) through `--schedule
+               slo` (pipelined decode windows, the draw inside each step's
+               graph): greedy streams equal to the continuous run's, a
+               profiled round, then `--slo-ms 1e-3`, which defers every
+               admission into a busy engine, with the same streams; then
+               `--sampling categorical` through the continuous, slo and
+               spec (self chain, shrink 2-branch tree) schedules, whose
+               streams must all be equal; exact launches, captures = misses
+               and no recapture in every serve. Then `chunked`: a 512-token
+               prompt arriving at step 4 while 7 lanes decode, with and
+               without `--prefill-chunk 64`, continuous and slo: one chunk
+               graph whichever lane it stages, decode steps between the long
+               prompt's chunks, exact launches, the running lanes' gaps
+               between tokens from the long prompt's arrival on; chunked
+               streams equal to the unchunked ones except where one parts
+               at a near tie (replayed alone on both paths: each path's
+               margin between the two picks within the two logit rows'
+               largest difference; the prompt caches come from other
+               kernels on the two paths);
+  13. encoder — full whisper-small (12 + 12 layers, d 768, random bf16
                weights from a seed) served by the serve CLI's entry point
                through the continuous schedule: per-request log-mel frames
                (3000, 80) through the two-conv stem (conv2d with the GELU
@@ -147,8 +176,10 @@ printing one JSON line for each:
                decode steps imply; then each request's frames encoded with
                the stem fused and unfused (conv2d, then act_lut), which must
                give the same bits with exactly 2 more act_lut launches per
-               request; the pools routed once at the pyramid shapes; and a
-               profiled second round as in phase 8.
+               request; the pools routed once at the pyramid shapes; a
+               profiled second round as in phase 9; and the same requests
+               through `--schedule slo`, whose streams must equal the
+               continuous run's.
 
 Then a `kernels` line with every kernel's numbers, the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
@@ -191,7 +222,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the port itself: alone in a directory, the script stops here
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import dispatch, hal  # noqa: E402
+from repro_torch.core import dispatch, hal, prng  # noqa: E402
 from repro_torch.core.numerics import _LUT_SPECS  # noqa: E402
 from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
                                        ProgramCache, dtype_name)
@@ -212,7 +243,9 @@ from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.specdec import specdec as sd  # noqa: E402  (the module)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.scheduler import Request, merge_prefill_caches  # noqa: E402
+from repro_torch.launch.scheduler import (ChunkConfig, ContinuousSchedule,  # noqa: E402
+                                          Request, ServeConfig, SLOSchedule, TokenSampler,
+                                          build_scheduler, merge_prefill_caches)
 from repro_torch.launch.speculative import Drafter, SpeculativeSchedule  # noqa: E402
 from repro_torch.models import dispatched as dsp  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
@@ -266,6 +299,18 @@ PREFIX_ROUNDS = 2
 PREFIX_BLOCK = 16
 PREFIX_BLOCKS = 64
 PREFIX_NAMED = ("admit_slot", "reset_slot", "prefix_admit", "pool_insert")
+# the slo phase: an SLO low enough that every admission into a busy engine
+# waits (the gate's own floor term alone exceeds it)
+SLO_TIGHT_MS = 1e-3
+# the chunked phase: a 512-token prompt arriving at step CHUNK_ARRIVAL while
+# 7 lanes (the serve's first 7 prompts, CHUNK_RUNNING_GEN tokens each) decode
+CHUNK_SIZE = 64
+CHUNK_LONG = 512
+CHUNK_ARRIVAL = 4
+CHUNK_RUNNING_GEN = 64
+# the sampling phase: rows of tinyllama's vocab
+SAMPLING_ROWS, SAMPLING_VOCAB = 8, 32000
+GUMBEL_TOL = 1e-6
 
 # a peaked flash check (q drawn at 4x, outputs O(1)) is also held to this many
 # roundings of its dtype at the largest output, beside the registry tolerance
@@ -1450,6 +1495,7 @@ def main(argv: list[str]) -> int:
     check_parity()
     check_parity_encdec()
     check_rows(cfg)
+    check_sampling()
     check_graphs(cfg)
     # each kernel's launches come from the serve run whose path uses it
     launches, tokens = {}, {}
@@ -1467,7 +1513,11 @@ def main(argv: list[str]) -> int:
             launches["specdec"] = run["specdec"]
         if branches > 1:
             launches["specdec_tree"] = run["specdec_tree"]
-    launches.update(serve_encoder(timer))
+    serve_slo(cfg, tokens["fp16"])
+    serve_chunked(cfg)
+    encoder_launches, encoder_tokens = serve_encoder(timer)
+    launches.update(encoder_launches)
+    serve_encoder_slo(encoder_tokens)
 
     kernels = []
     for spec in registry.all_specs():
@@ -1957,27 +2007,33 @@ def run_graph_checks(cfg) -> None:
     def p0():
         return positions(32, SERVE_MAX_LEN - 2 * SPEC_DEPTH)
 
+    def rids():
+        return torch.randint(0, 2 ** 31 - 1, (8,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    rid = rids()
     for k in (1, SPEC_DEPTH):
-        prog, _ = sched._draft_program(tok, pos, k)
+        prog, _ = sched._draft_program(tok, pos, rid, k)
         check_graph_replays(f"spec draft K={k}", prog,
-                            lambda i: (dparams, sched.draft_caches, tokens((8, 1)), p0()),
-                            (1,))
-        prog, _ = sched._verify_program(tok, pos, tokens((8, k)), k)
+                            lambda i: (dparams, sched.draft_caches, tokens((8, 1)), p0(),
+                                       rids()), (1,))
+        prog, _ = sched._verify_program(tok, pos, tokens((8, k)), rid, k)
         check_graph_replays(f"spec verify K={k}", prog,
                             lambda i, k=k: (params, sched.caches, tokens((8, 1)), p0(),
-                                            tokens((8, k))), (1,))
+                                            tokens((8, k)), rids()), (1,))
     k, nbr = SPEC_DEPTH, 2
-    prog, _ = sched._draft_tree_program(tok, pos, k)
+    prog, _ = sched._draft_tree_program(tok, pos, rid, k)
     check_graph_replays(f"spec tree draft K={k} x{nbr}", prog,
-                        lambda i: (dparams, sched.draft_caches, tokens((8, 1)), p0()), (1,))
+                        lambda i: (dparams, sched.draft_caches, tokens((8, 1)), p0(), rids()),
+                        (1,))
 
     def tiled():
         return tree_map(lambda leaf: leaf.repeat_interleave(nbr, dim=1), sched.draft_caches)
 
-    prog, _ = sched._verify_tree_program(tiled(), tok, pos, tokens((8, nbr, k)), k)
+    prog, _ = sched._verify_tree_program(tiled(), tok, pos, tokens((8, nbr, k)), rid, k)
     check_graph_replays(f"spec tree verify K={k} x{nbr}", prog,
                         lambda i: (params, sched.caches, sched.draft_caches, tiled(),
-                                   tokens((8, 1)), p0(), tokens((8, nbr, k))), (1, 2))
+                                   tokens((8, 1)), p0(), tokens((8, nbr, k)), rids()), (1, 2))
     prog, _ = sched._joint_program(tok, pos)
     check_graph_replays("spec joint catch-up", prog,
                         lambda i: (params, dparams, sched.caches, sched.draft_caches,
@@ -1986,7 +2042,61 @@ def run_graph_checks(cfg) -> None:
     prog, _ = cache.compile(sched._joint_prefill_fn, params, dparams, batch, per_call=(2,))
     check_graph_replays("spec joint prefill bucket 64", prog,
                         lambda i: (params, dparams, {"tokens": tokens((1, 64))}), ())
-    del sched, model, params, caches
+    sched.stream.close()
+
+    # seeded categorical windows: the threefry and gumbel ops inside graphs
+    csched = SpeculativeSchedule(model, params, cfg, n_slots=8, max_len=SERVE_MAX_LEN,
+                                 stream=AsyncExecutionStream(cache, device="cuda"),
+                                 sampling="categorical", drafter=sched.drafter,
+                                 draft_branches=2, draft_depth=SPEC_DEPTH)
+    csched.caches, csched.draft_caches = sched.caches, sched.draft_caches
+    prog, _ = csched._draft_program(tok, pos, rid, k)
+    check_graph_replays(f"spec categorical draft K={k}", prog,
+                        lambda i: (dparams, csched.draft_caches, tokens((8, 1)), p0(), rids()),
+                        (1,))
+    prog, _ = csched._verify_program(tok, pos, tokens((8, k)), rid, k)
+    check_graph_replays(f"spec categorical verify K={k}", prog,
+                        lambda i: (params, csched.caches, tokens((8, 1)), p0(),
+                                   tokens((8, k)), rids()), (1,))
+    prog, _ = csched._draft_tree_program(tok, pos, rid, k)
+    check_graph_replays(f"spec categorical tree draft K={k} x{nbr}", prog,
+                        lambda i: (dparams, csched.draft_caches, tokens((8, 1)), p0(), rids()),
+                        (1,))
+    csched.stream.close()
+
+    # the SLO schedule's fused step (decode and the draw), both samplings
+    for sampling in ("greedy", "categorical"):
+        slo = SLOSchedule(model, params, cfg, n_slots=8, max_len=SERVE_MAX_LEN,
+                          sampling=sampling, stream=AsyncExecutionStream(cache, device="cuda"))
+        slo.caches = sched.caches
+        forced, mask = tokens((8,)), torch.rand(8, generator=gen, device="cuda") < 0.5
+        prog, _ = slo._fused_step_program(slo.caches, tok, pos, forced, mask, rid)
+        check_graph_replays(
+            f"slo step {sampling}", prog,
+            lambda i: (params, slo.caches, tokens((8, 1)), positions(32, SERVE_MAX_LEN - 8),
+                       tokens((8,)), torch.rand(8, generator=gen, device="cuda") < 0.5,
+                       rids()), (1,))
+        slo.stream.close()
+
+    # the chunk program: one graph whichever lane's staging row it writes
+    chunked = ContinuousSchedule(model, params, cfg, n_slots=8, max_len=SERVE_MAX_LEN,
+                                 prefill_chunk=CHUNK_SIZE,
+                                 stream=dispatch.ExecutionStream(cache, device="cuda"))
+    chunked._ensure_caches()
+    _random_cache(chunked.staging, gen)
+
+    def lane():
+        return torch.randint(0, 8, (1,), generator=gen, device="cuda", dtype=torch.long)
+
+    def chunk_start():
+        return torch.randint(0, 6, (1,), generator=gen, device="cuda",
+                             dtype=torch.int32) * CHUNK_SIZE
+
+    prog, _ = chunked._chunk_program(tokens((1, CHUNK_SIZE)), chunk_start(), lane())
+    check_graph_replays(f"chunk C={CHUNK_SIZE}", prog,
+                        lambda i: (params, chunked.staging, tokens((1, CHUNK_SIZE)),
+                                   chunk_start(), lane()), (1,))
+    del sched, csched, slo, chunked, model, params, caches
 
     wcfg = configs.get_config(ENCODER_ARCH)
     wmodel = build_model(wcfg, KernelDispatcher(), device="cuda")
@@ -2023,7 +2133,8 @@ def run_graph_checks(cfg) -> None:
         raise AssertionError(f"graphs: {st.recaptures} recaptures")
 
 
-def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
+def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
+               sampling: str = "greedy") -> dict:
     """Full tinyllama-1.1b (fp16 form) through the speculative schedule with
     `draft` and `branches`; returns the launch counts of this run alone,
     after checking the tokens against the continuous run's, the routes, the
@@ -2039,10 +2150,10 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
     else:
         out = serve.run(serve_argv(cfg, SERVE_ROUNDS, "fp16", "spec") + [
             "--draft", draft, "--draft-branches", str(branches),
-            "--draft-depth", str(SPEC_DEPTH)])
+            "--draft-depth", str(SPEC_DEPTH), "--sampling", sampling])
     launches = native.launch_counts()
     engine = out["engine"]
-    tag = f"spec {draft} x{branches}"
+    tag = f"spec {draft} x{branches}" + ("" if sampling == "greedy" else f" {sampling}")
     graphs = graph_counts(tag, out, ("spec_admit_slot", "spec_reset_slot"))
     if not np.array_equal(out["tokens"], want_tokens):
         bad = int((out["tokens"] != want_tokens).any(axis=1).sum())
@@ -2083,6 +2194,7 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray) -> dict:
     walls = {"draft": [r.wall_s for r in recs if r.key in engine._draft_keys],
              "verify": [r.wall_s for r in recs if r.key in engine._verify_keys]}
     emit("spec", config=cfg.name, dtype=cfg.dtype, weight_form="fp16", drafter=draft,
+         sampling=sampling,
          drafter_layers=l_d, draft_branches=branches, draft_depth=SPEC_DEPTH,
          lanes=len(want_tokens), prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=SERVE_ROUNDS,
          tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], tokens_match_continuous=True,
@@ -2143,6 +2255,338 @@ def serve_early_exit(cfg, branches: int) -> dict:
             "cache_hits": st.hits, "cache_misses": st.misses, "captures": st.captures,
             "recaptures": st.recaptures, "replays": st.replays,
             **engine.stats(n_requests)}
+
+
+# ---------------------------------------------------------------------------
+# the sampling, slo and chunked phases
+# ---------------------------------------------------------------------------
+
+
+def check_sampling() -> None:
+    """jax's threefry chain (`core.prng`) on the card against the same code
+    on the CPU: the known key data of PRNGKey(0) -> fold_in(3) ->
+    fold_in(17); the (rid, pos) keys, 32-bit bits and uniforms of 8 rows of
+    32000 bit for bit; gumbel within 1e-6; the categorical draws over (8,
+    32000) fp32 rows equal, and the `TokenSampler`'s on the card equal to
+    its own on the CPU. Gumbel is held within rtol = atol = 1e-6 (its
+    largest values, ~16, have an ulp of ~1e-6)."""
+    known = prng.fold_in(prng.fold_in(prng.seed_key(0, "cuda"), 3), 17).cpu().tolist()
+    if known != [667729679, 229813208]:
+        raise AssertionError(f"sampling: PRNGKey(0) -> fold_in(3) -> fold_in(17) = {known}")
+    rids = torch.arange(SAMPLING_ROWS) * 7 + 1
+    positions = torch.arange(SAMPLING_ROWS) * 131 + 5
+    root = prng.seed_key(0)
+    keys = prng.request_keys(root, rids, positions)
+    keys_gpu = prng.request_keys(root.cuda(), rids.cuda(), positions.cuda())
+    n = SAMPLING_VOCAB
+    bits_eq = torch.equal(prng.random_bits32(keys_gpu, n).cpu(), prng.random_bits32(keys, n))
+    unif_eq = torch.equal(prng.uniform(keys_gpu, n).cpu(), prng.uniform(keys, n))
+    g_gpu, g_cpu = prng.gumbel(keys_gpu, n).cpu(), prng.gumbel(keys, n)
+    gumbel_err = float((g_gpu - g_cpu).abs().max())
+    gumbel_ok = bool(torch.allclose(g_gpu, g_cpu, rtol=GUMBEL_TOL, atol=GUMBEL_TOL))
+    rows = torch.randn((SAMPLING_ROWS, n), generator=torch.Generator().manual_seed(6)) * 2
+    draws_cpu = prng.categorical(keys, rows)
+    draws_gpu = prng.categorical(keys_gpu, rows.cuda()).cpu()
+    picks_gpu = TokenSampler("categorical", n, seed=0, device="cuda").pick(
+        rows.cuda(), rids.tolist(), positions.tolist())
+    picks_cpu = TokenSampler("categorical", n, seed=0).pick(rows, rids.tolist(),
+                                                            positions.tolist())
+    ok = (torch.equal(keys_gpu.cpu(), keys) and bits_eq and unif_eq
+          and gumbel_ok and torch.equal(draws_gpu, draws_cpu)
+          and np.array_equal(picks_gpu, picks_cpu) and np.array_equal(picks_cpu, draws_cpu))
+    emit("sampling", known_answer=known, rows=SAMPLING_ROWS, vocab=n,
+         keys_bit_identical=torch.equal(keys_gpu.cpu(), keys), bits_bit_identical=bits_eq,
+         uniforms_bit_identical=unif_eq, gumbel_max_abs_err=gumbel_err,
+         gumbel_tol={"rtol": GUMBEL_TOL, "atol": GUMBEL_TOL},
+         draws_equal=torch.equal(draws_gpu, draws_cpu),
+         sampler_equal=bool(np.array_equal(picks_gpu, picks_cpu)), ok=ok)
+    if not ok:
+        raise AssertionError("sampling: the card's threefry draws differ from the CPU's")
+
+
+def step_counts(out: dict, decode_keys) -> tuple[int, int, int]:
+    """(prefill, chunk, decode) program dispatches of a serve's records."""
+    engine = out["engine"]
+    chunk_keys = getattr(engine, "_chunk_keys", set())
+    n_chunk = sum(r.key in chunk_keys for r in out["records"])
+    n_decode = sum(r.key in decode_keys for r in out["records"])
+    n_prefill = sum(r.key not in NAMED_RECORDS and r.key not in chunk_keys
+                    and r.key not in decode_keys for r in out["records"])
+    return n_prefill, n_chunk, n_decode
+
+
+def check_serve_launches(tag: str, cfg, launches: dict, n_prefill: int, n_chunk: int,
+                         n_decode: int) -> None:
+    """A dense decoder's serve: anemm once per matmul of every forward (7
+    per layer plus the head; a chunk is a forward), flash once per layer of
+    every prefill, decode_attention once per layer of every decode step (a
+    chunk attends in plain PyTorch); nothing else."""
+    want = {k: 0 for k in launches}
+    want.update({"anemm": (7 * cfg.n_layers + 1) * (n_prefill + n_chunk + n_decode),
+                 "flash": cfg.n_layers * n_prefill,
+                 "decode_attention": cfg.n_layers * n_decode})
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+
+
+def digest(tokens: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(tokens).tobytes()).hexdigest()
+
+
+def serve_schedule(cfg, tag: str, argv: list[str], want_tokens: np.ndarray | None) -> dict:
+    """One serve of full tinyllama-1.1b (fp16 form) through the CLI's entry
+    point, checked: tokens equal `want_tokens` (when given), every route
+    cuda, captures = misses with no recapture, exact launches; the decode
+    steps are the slo schedule's fused programs or the continuous decode
+    program. Returns the run's output."""
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    out = serve.run(argv)
+    launches = native.launch_counts()
+    engine = out["engine"]
+    graphs = graph_counts(tag, out, NAMED_RECORDS)
+    if want_tokens is not None and not np.array_equal(out["tokens"], want_tokens):
+        bad = int((out["tokens"] != want_tokens).any(axis=1).sum())
+        raise AssertionError(f"{tag}: {bad} of {len(want_tokens)} streams differ")
+    if {b for _, b in out["routes"]} != {"cuda"}:
+        raise AssertionError(f"{tag} routes {out['routes']}: every route must be cuda")
+    decode_keys = getattr(engine, "_decode_keys", None) or \
+        {k for _, k in engine._decode_memo.values()}
+    n_prefill, n_chunk, n_decode = step_counts(out, decode_keys)
+    check_serve_launches(tag, cfg, launches, n_prefill, n_chunk, n_decode)
+    steps = [r for r in out["records"] if r.key in decode_keys]
+    walls = [r.wall_s for r in steps]
+    # a pipelined step's record wall includes its wait behind the steps
+    # ahead of it: the gap between completions is the step's own time
+    done = sorted(r.complete_ts for r in steps)
+    gaps = [b - a for a, b in zip(done, done[1:])]
+    emit("slo_serve", run=tag, config=cfg.name, dtype=cfg.dtype, schedule=out["schedule"],
+         sampling=out["sampling"], lanes=len(out["tokens"]), prompt_lens=SERVE_LENS,
+         gen=SERVE_GEN, tokens_sha256=digest(out["tokens"]), tok_per_s=out["tok_per_s"],
+         wall_s=out["wall_s"], decode_steps=n_decode, prefills=n_prefill,
+         decode_median_ms=statistics.median(walls) * 1e3 if walls else None,
+         decode_gap_median_ms=statistics.median(gaps) * 1e3 if gaps else None,
+         mean_inflight_depth=out.get("mean_inflight_depth"),
+         deferred_admissions=out.get("deferred_admissions"),
+         predicted_token_latency_s=out.get("predicted_token_latency_s"),
+         acceptance_rate=out.get("acceptance_rate"), n_dispatches=out["n_dispatches"],
+         cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
+         launches=launches, **graphs, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def serve_slo(cfg, greedy_tokens: np.ndarray) -> None:
+    """Full tinyllama-1.1b (fp16 form), the serve phase's 8 lanes and
+    prompts, through the slo schedule: greedy streams equal to the
+    continuous run's; a profiled round; an SLO tight enough to defer every
+    admission into a busy engine, with the same streams; then seeded
+    categorical streams equal under the continuous, slo and spec schedules
+    (the self drafter's chain windows and the shrink drafter's 2-branch
+    tree windows), and a profiled categorical slo round (the draw's device
+    time beside the greedy round's)."""
+    slo_argv = serve_argv(cfg, SERVE_ROUNDS, "fp16", "slo")
+    serve_schedule(cfg, "slo greedy", slo_argv, greedy_tokens)
+    profile_serve("slo", serve_argv(cfg, 1, "fp16", "slo"))
+    tight = serve_schedule(cfg, "slo greedy deferred",
+                           slo_argv + ["--slo-ms", str(SLO_TIGHT_MS)], greedy_tokens)
+    if tight["deferred_admissions"] <= 0:
+        raise AssertionError(f"slo --slo-ms {SLO_TIGHT_MS}: no admission was deferred")
+    cat = ["--sampling", "categorical"]
+    want = serve_schedule(cfg, "continuous categorical",
+                          serve_argv(cfg, SERVE_ROUNDS, "fp16") + cat, None)["tokens"]
+    if np.array_equal(want, greedy_tokens):
+        raise AssertionError("categorical streams equal the greedy ones: nothing was drawn")
+    serve_schedule(cfg, "slo categorical", slo_argv + cat, want)
+    profile_serve("slo categorical", serve_argv(cfg, 1, "fp16", "slo") + cat)
+    for draft, branches in (("self", 1), ("shrink", 2)):
+        serve_spec(cfg, draft, branches, want, sampling="categorical")
+
+
+def chunked_requests(cfg, rid0: int = 0) -> list[Request]:
+    """7 running lanes (the serve's first 7 prompts) and one 512-token
+    prompt arriving at step CHUNK_ARRIVAL, drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    lens = [int(x) for x in SERVE_LENS.split(",")][:7] + [CHUNK_LONG]
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    return [Request(rid0 + i, p, CHUNK_RUNNING_GEN if i < 7 else SERVE_GEN,
+                    arrival=CHUNK_ARRIVAL if i == 7 else 0) for i, p in enumerate(prompts)]
+
+
+def decode_keys_of(engine) -> set:
+    """The program keys of an engine's decode steps (the slo schedule's
+    fused steps, or the decode program)."""
+    return getattr(engine, "_decode_keys", None) or \
+        {k for _, k in engine._decode_memo.values()}
+
+
+def arrival_gaps_ms(engine, records, first_admission_seq: int) -> list[float]:
+    """The running lanes' gaps between tokens from the long prompt's arrival
+    on: the gaps between consecutive decode steps' completions, starting
+    with the last step before the long prompt's first admission dispatch
+    (every step emits one token a running lane)."""
+    keys = decode_keys_of(engine)
+    steps = [r for r in records if r.key in keys]
+    before = [r for r in steps if r.seq < first_admission_seq]
+    done = sorted(r.complete_ts for r in steps if r.seq >= first_admission_seq)
+    done = ([max(r.complete_ts for r in before)] if before else []) + done
+    return [(b - a) * 1e3 for a, b in zip(done, done[1:])]
+
+
+def replay_rows(cfg, model, params, req: Request, chunk, n_tokens: int) -> tuple:
+    """Request `req` alone through the continuous schedule (chunked or not)
+    on 8 lanes (the served shapes: PyTorch's reductions, the norms', may
+    sum a row in another order at another row count) for `n_tokens`
+    tokens, recording the fp32 logit row of every pick: (tokens, rows)."""
+    engine = build_scheduler(ServeConfig(
+        schedule="continuous", max_len=CHUNK_LONG + SERVE_GEN, n_slots=8,
+        chunk=ChunkConfig(prefill_chunk=chunk) if chunk else None), model, params, cfg)
+    rows, pick = [], engine.sampler.pick
+
+    def recording(r, rids, positions):
+        rows.append(r[..., :cfg.vocab].float().cpu())
+        return pick(r, rids, positions)
+
+    engine.sampler.pick = recording
+    res = engine.run([Request(req.rid, req.prompt, n_tokens)])
+    return res[0].tokens, torch.cat([r.reshape(-1, cfg.vocab) for r in rows])
+
+
+def explain_divergence(cfg, model, params, req: Request, a: np.ndarray, b: np.ndarray) -> dict:
+    """Two greedy streams of one request, unchunked (`a`) and chunked
+    (`b`), that part at token j: the prompt's cache came from other kernels
+    on the two paths (flash and decode, or the chunk's plain attention), so
+    their logits differ by rounding. Replays the request alone on both
+    paths, which must reproduce both streams through token j, and reads the
+    two logit rows that picked token j: the flip is a near tie when each
+    path's margin between the two picks is within the largest difference
+    between the two rows."""
+    j = int(np.argmax(a != b))
+    ta, ra = replay_rows(cfg, model, params, req, None, j + 1)
+    tb, rb = replay_rows(cfg, model, params, req, CHUNK_SIZE, j + 1)
+    ra, rb = ra[j], rb[j]
+    x, y = int(a[j]), int(b[j])
+    diff = float((ra - rb).abs().max())
+    margin_a, margin_b = float(ra[x] - ra[y]), float(rb[y] - rb[x])
+    top2 = [float(r.topk(2).values[0] - r.topk(2).values[1]) for r in (ra, rb)]
+    replayed = bool(np.array_equal(ta, a[:j + 1]) and np.array_equal(tb, b[:j + 1]))
+    return {"rid": req.rid, "prompt_len": int(req.prompt.size), "token": j,
+            "unchunked_pick": x, "chunked_pick": y, "replayed": replayed,
+            "margin_unchunked": margin_a, "margin_chunked": margin_b,
+            "top2_margin": top2, "max_abs_logit_diff": diff,
+            "near_tie": replayed and 0 <= margin_a <= diff and 0 <= margin_b <= diff}
+
+
+def serve_chunked(cfg) -> None:
+    """Full tinyllama-1.1b (fp16 form): a 512-token prompt arrives at step
+    4 while 7 lanes decode, served with and without `--prefill-chunk 64`
+    under the continuous and the slo schedules (each engine serves the
+    requests twice; the second round is the one measured, every program a
+    replay). The chunk program must be one graph (one capture, no
+    recapture) whichever lane it stages; decode dispatches must run between
+    the long prompt's chunks, whose spans tile [0, 448); launches exact;
+    the slo streams equal the continuous ones. Chunked and unchunked
+    streams must be equal, except where a stream parts at a near tie
+    (`explain_divergence`): the prompt caches come from other kernels on the
+    two paths. Reports the running lanes' gaps between tokens from the long
+    prompt's arrival on (p99, largest, median), chunked and not."""
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    max_len = CHUNK_LONG + SERVE_GEN
+    target = CHUNK_SIZE * ((CHUNK_LONG - 1) // CHUNK_SIZE)
+    tokens: dict = {}
+    for schedule in ("continuous", "slo"):
+        for chunk in (None, CHUNK_SIZE):
+            tag = f"{schedule} chunk={chunk}"
+            cache = ProgramCache()
+            stream = (AsyncExecutionStream if schedule == "slo" else dispatch.ExecutionStream)(
+                cache, device="cuda")
+            engine = build_scheduler(ServeConfig(
+                schedule=schedule, max_len=max_len, n_slots=8, stream=stream,
+                chunk=ChunkConfig(prefill_chunk=chunk) if chunk else None), model, params, cfg)
+            engine.run(chunked_requests(cfg))
+            seen = len(stream.records)
+            native.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = engine.run(chunked_requests(cfg, rid0=8))
+            wall = time.perf_counter() - t0
+            launches = native.launch_counts()
+            recs = stream.records[seen:]
+            if isinstance(stream, AsyncExecutionStream):
+                stream.close()
+            tokens[schedule, chunk] = [r.tokens for r in res]
+            st = cache.stats
+            if (st.captures, st.recaptures) != (st.misses, 0):
+                raise AssertionError(f"chunked {tag}: {st.captures} captures, "
+                                     f"{st.recaptures} recaptures, {st.misses} misses")
+            if {b for _, b in model.dispatcher.census()} != {"cuda"}:
+                raise AssertionError(f"chunked {tag}: routes {model.dispatcher.census()}")
+            keys = decode_keys_of(engine)
+            n_prefill, n_chunk, n_decode = step_counts({"engine": engine, "records": recs},
+                                                       keys)
+            check_serve_launches(f"chunked {tag}", cfg, launches, n_prefill, n_chunk, n_decode)
+            between, graphs_of_chunk = 0, None
+            if chunk:
+                # the long prompt chunks last: its chunks are the last records
+                # with a span, and they must tile [0, target)
+                long = [r for r in recs if r.span is not None][-(target // CHUNK_SIZE):]
+                spans = [r.span for r in long]
+                first_admission = long[0].seq
+                between = sum(long[0].seq < r.seq < long[-1].seq for r in recs
+                              if r.key in keys)
+                graphs_of_chunk = len(next(iter(engine._chunk_memo.values()))[0]._graphs)
+                if len(engine._chunk_keys) != 1 or graphs_of_chunk != 1 or between == 0 \
+                        or spans != [(c, c + CHUNK_SIZE) for c in range(0, target, CHUNK_SIZE)]:
+                    raise AssertionError(
+                        f"chunked {tag}: {len(engine._chunk_keys)} chunk programs, "
+                        f"{graphs_of_chunk} graphs, {between} decode steps between the long "
+                        f"prompt's chunks, its spans {spans}")
+            else:
+                # the long prompt's prefill: the last record of a prefill program
+                first_admission = [r.seq for r in recs if r.key not in keys
+                                   and r.key not in NAMED_RECORDS][-1]
+            gaps = arrival_gaps_ms(engine, recs, first_admission)
+            emit("chunked", run=tag, config=cfg.name, dtype=cfg.dtype, schedule=schedule,
+                 prefill_chunk=chunk, long_prompt=CHUNK_LONG, arrival=CHUNK_ARRIVAL,
+                 running_lanes=7, wall_s=wall, decode_steps=n_decode, chunks=n_chunk,
+                 prefills=n_prefill, decode_between_chunks=between,
+                 chunk_graphs=graphs_of_chunk, captures=st.captures, misses=st.misses,
+                 recaptures=st.recaptures, gaps_after_arrival=len(gaps),
+                 p99_token_gap_ms=float(np.percentile(gaps, 99)),
+                 max_token_gap_ms=max(gaps), median_token_gap_ms=statistics.median(gaps),
+                 tokens_sha256=digest(np.stack(tokens[schedule, chunk][:7])),
+                 launches=launches)
+    for a, b in zip(tokens["continuous", None] + tokens["continuous", CHUNK_SIZE],
+                    tokens["slo", None] + tokens["slo", CHUNK_SIZE]):
+        if not np.array_equal(a, b):
+            raise AssertionError("chunked phase: slo and continuous streams differ")
+    parted = []
+    for req, a, b in zip(chunked_requests(cfg), tokens["continuous", None],
+                         tokens["continuous", CHUNK_SIZE]):
+        if np.array_equal(a, b):
+            continue
+        why = explain_divergence(cfg, model, params, req, a, b)
+        parted.append(why)
+        if not why["near_tie"]:
+            raise AssertionError(f"chunked phase: request {req.rid} parts from the unchunked "
+                                 f"stream at token {why['token']}, not at a near tie: {why}")
+    emit("chunked_streams", requests=len(tokens["continuous", None]),
+         equal=len(tokens["continuous", None]) - len(parted), parted_at_near_ties=parted)
+    del model, params
+
+
+def serve_encoder_slo(want_tokens: np.ndarray) -> None:
+    """Full whisper-small through the slo schedule (the encoder phase's
+    requests): greedy streams equal to the continuous run's, every route
+    cuda, captures = misses with no recapture."""
+    out = serve.run(encoder_argv(SERVE_ROUNDS, "slo"))
+    graphs = graph_counts("encoder slo", out, NAMED_RECORDS)
+    if not np.array_equal(out["tokens"], want_tokens):
+        raise AssertionError("encoder slo: streams differ from the continuous run's")
+    if {b for _, b in out["routes"]} != {"cuda"}:
+        raise AssertionError(f"encoder slo routes {out['routes']}")
+    emit("encoder_slo", config=ENCODER_ARCH, tokens_sha256=digest(out["tokens"]),
+         tok_per_s=out["tok_per_s"], mean_inflight_depth=out["mean_inflight_depth"],
+         n_dispatches=out["n_dispatches"], **graphs)
 
 
 # device-trace kernel names -> the port's kernels (one traced instance a
@@ -2234,7 +2678,9 @@ def profile_serve(label: str, argv: list[str]) -> None:
     beside it."""
     out = serve.run(argv)
     engine = out["engine"]
-    reqs = round_requests(argv, rid0=len(out["results"]))
+    # the first round's requests again, rids included: a categorical draw
+    # is keyed by its request's rid
+    reqs = round_requests(argv, rid0=min(r.rid for r in out["results"]))
     before = (out.get("captures"), engine.cache.stats.misses)
     lost = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
@@ -2337,8 +2783,8 @@ def check_parity_encdec() -> None:
              max_abs_err=max(errs), tol=[rtol, atol], ok=True)
 
 
-def encoder_argv(rounds: int) -> list[str]:
-    return ["--arch", ENCODER_ARCH, "--schedule", "continuous", "--batch", "8",
+def encoder_argv(rounds: int, schedule: str = "continuous") -> list[str]:
+    return ["--arch", ENCODER_ARCH, "--schedule", schedule, "--batch", "8",
             "--prompt-lens", ENCODER_LENS, "--gen", str(SERVE_GEN), "--requests", str(rounds),
             "--seed", "0", "--device", "cuda"]
 
@@ -2446,7 +2892,8 @@ def serve_encoder(timer) -> dict:
 
     profile_serve(ENCODER_ARCH, encoder_argv(1))
     return {"conv2d": launches["conv2d"], "act_lut": counts[False]["act_lut"],
-            "avg_pool": pool_launches["avg_pool"], "max_pool": pool_launches["max_pool"]}
+            "avg_pool": pool_launches["avg_pool"], "max_pool": pool_launches["max_pool"]}, \
+        tokens
 
 
 if __name__ == "__main__":

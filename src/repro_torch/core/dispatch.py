@@ -274,6 +274,18 @@ def _abandon(graph: torch.cuda.CUDAGraph) -> None:
         pass
 
 
+def _cell_key(cell) -> str:
+    """A closure cell in a program key: a plain value by its repr, any other
+    object by its type and identity."""
+    try:
+        v = cell.cell_contents
+    except ValueError:                       # an empty cell
+        return "<empty>"
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return repr(v)
+    return f"{type(v).__name__}@{id(v)}"
+
+
 class ProgramCache:
     """Program cache keyed like the reference's content hash: the same
     function on arguments of the same shapes, dtypes and options resolves to
@@ -288,10 +300,14 @@ class ProgramCache:
     def key(fn: Callable, args_spec: tuple, options: str = "") -> str:
         # bound methods are re-created per attribute access: key on the
         # underlying function + the receiver's identity (the stored program
-        # holds the receiver, so the id is not recycled while it lives)
+        # holds the receiver, so the id is not recycled while it lives); a
+        # closure keys on what it closes over too (values, or the identity
+        # of objects, held by the stored program the same way), so two
+        # schedules' programs from one `def` never share an entry
         func = getattr(fn, "__func__", fn)
         receiver = id(getattr(fn, "__self__", None))
-        body = (f"{func.__module__}.{func.__qualname__}@{receiver}|"
+        cells = tuple(_cell_key(c) for c in getattr(func, "__closure__", None) or ())
+        body = (f"{func.__module__}.{func.__qualname__}@{receiver}{cells}|"
                 f"{_spec(args_spec)}|{options}")
         inner = hashlib.sha256(body.encode()).digest()
         return hashlib.sha256(inner).hexdigest()
@@ -340,6 +356,9 @@ class DispatchRecord:
     inflight_depth: int = 0    # submissions not yet complete when it was
                                # submitted: 0 on a sync stream, < the window
                                # on an async one
+    span: tuple[int, int] | None = None
+                               # the prompt tokens [lo, hi) a chunked-prefill
+                               # dispatch covered (None for any other)
 
 
 def _sync(device: torch.device) -> None:
@@ -382,18 +401,20 @@ class ExecutionStream:
         self.device = torch.device(device)
         self.floor_s = measure_dispatch_floor(self.device)["per_call_s"]
         self.records: list[DispatchRecord] = []
-        self._encoded: list[tuple[Callable, tuple, str, int]] = []
+        self._encoded: list[tuple[Callable, tuple, str, int, tuple | None]] = []
         self._seq = 0
 
     def encode_operation(self, program: Callable, args: tuple, key: str = "", *,
-                         batch: int = 1) -> None:
-        self._encoded.append((program, args, key, batch))
+                         batch: int = 1, span: tuple[int, int] | None = None) -> None:
+        """Queue one program call; `span` tags the prompt tokens a
+        chunked-prefill dispatch covers."""
+        self._encoded.append((program, args, key, batch, span))
 
     def execute_sync(self) -> list:
         """Run everything encoded, in order, each to completion. Returns one
         output per encoded op, in encode order."""
         outs = []
-        for program, args, key, batch in self._encoded:
+        for program, args, key, batch, span in self._encoded:
             captured = _capture_seconds(program)
             t0 = time.perf_counter()
             out = program(*args)
@@ -405,7 +426,7 @@ class ExecutionStream:
             wall = t1 - t0
             self.records.append(DispatchRecord(
                 key, wall, max(0.0, wall - self.floor_s), self.floor_s, batch,
-                self._seq, submit_ts=t0, complete_ts=t1))
+                self._seq, submit_ts=t0, complete_ts=t1, span=span))
             self._seq += 1
             outs.append(out)
         self._encoded.clear()
@@ -521,7 +542,7 @@ class AsyncExecutionStream(ExecutionStream):
         error surfaces at `sync()`)."""
         self._ensure_drainer()
         outs = []
-        for program, args, key, batch in self._encoded:
+        for program, args, key, batch, span in self._encoded:
             # no event may be waited on (nor destroyed, by the drain thread
             # dropping the last reference) during a capture: drain first and
             # hold the confirmed submissions until the program returned
@@ -543,7 +564,7 @@ class AsyncExecutionStream(ExecutionStream):
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
             rec = DispatchRecord(key, 0.0, 0.0, self.floor_s, batch, self._seq,
-                                 submit_ts=t_sub, inflight_depth=depth)
+                                 submit_ts=t_sub, inflight_depth=depth, span=span)
             self._seq += 1
             h = _Inflight(rec, out, event, time.perf_counter(), error)
             with self._lock:

@@ -8,6 +8,8 @@
         --batch 8 --prompt-lens 8,16,24,32,48,64,100,128 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --batch 2 --prompt-len 17 --gen 4 --requests 2 --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --schedule slo --sampling categorical --prefill-chunk 8 --gen 6
 
 After `src/repro/launch/serve.py:119-419`. The model is built on the chosen
 device with a `KernelDispatcher`: on `--device cuda` (the default) every
@@ -40,6 +42,17 @@ a request whose prompt prefix is resident admits with one gather dispatch
 instead of re-prefilling it, and the report adds the pool's hits, misses,
 skipped prefill tokens and evictions. The sequential schedule drops the pool
 knobs (with a warning), the spec schedule and an encoder-decoder refuse them.
+`--schedule slo` pipelines decode on an `AsyncExecutionStream` (up to
+`--max-in-flight` steps a window, next-token selection inside the decode
+program) and, with `--slo-ms`, defers an admission while the predicted
+token latency exceeds it; its report adds the window, the deferred
+admissions and the predicted p99 token latency. `--prefill-chunk C`
+(continuous and slo) admits a prompt as chunk programs of C tokens, one a
+tick, with decode steps between them; the report adds the chunks and their
+prompt tokens. `--sampling categorical` draws each token with the key of its
+(request, position) under `--seed` (jax's threefry, `core.prng`), on the
+device that holds the logits. The engine is built from a `ServeConfig`
+(`scheduler.build_scheduler`), which refuses a knob of another schedule.
 
 `run(argv, prompts=...)` serves given rounds of prompts (a list of rounds,
 each a list of int32 token arrays) in place of the seeded draws: the
@@ -50,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import time
+import warnings
 from collections import Counter
 
 import numpy as np
@@ -59,7 +73,9 @@ from repro_torch import configs
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream,
                                        KernelDispatcher, ProgramCache)
 from repro_torch.kernels import native
-from repro_torch.launch.scheduler import SAMPLING_MODES, SCHEDULES, Request
+from repro_torch.launch.scheduler import (SAMPLING_MODES, SCHEDULES, ChunkConfig, PrefixConfig,
+                                          Request, ServeConfig, SLOConfig, SpecConfig,
+                                          build_scheduler)
 from repro_torch.launch.speculative import DRAFT_KINDS
 from repro_torch.models.model import build_model
 from repro_torch.optim.compression import compress_model_params, weight_form_census
@@ -82,10 +98,11 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--schedule", default="continuous", choices=sorted(SCHEDULES),
                     help="continuous = slot-masked batched decode with mid-flight "
-                         "admission; spec = speculative draft->verify windows on the "
-                         "async stream (--draft-depth proposals per window, "
-                         "verify/accept on the card); sequential = one request at a "
-                         "time (parity reference)")
+                         "admission; slo = overlapped decode (async stream, sampling "
+                         "inside the decode program) with SLO-aware admission; spec = "
+                         "speculative draft->verify windows on the async stream "
+                         "(--draft-depth proposals per window, verify/accept on the "
+                         "card); sequential = one request at a time (parity reference)")
     ap.add_argument("--draft-depth", type=int, default=4,
                     help="spec only: drafter proposals per window (each window pays "
                          "two dispatch floors for up to draft-depth + 1 tokens)")
@@ -96,10 +113,14 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
     ap.add_argument("--draft-branches", type=int, default=1,
                     help="spec only: sibling draft chains per lane (tree "
                          "verification, branching on the drafter's top-N)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="slo only: admit a queued request only while the predicted "
+                         "token latency stays under this many milliseconds (default: "
+                         "no limit)")
     ap.add_argument("--max-in-flight", type=int, default=8,
-                    help="spec only: bounded in-flight window of the async stream")
+                    help="slo and spec: bounded in-flight window of the async stream")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="continuous schedule: route admissions through the block-paged "
+                    help="continuous / slo: route admissions through the block-paged "
                          "KV pool; a request whose prompt prefix is resident (shared "
                          "system prompt, repeated round) admits with one gather dispatch "
                          "instead of re-prefilling the matched blocks")
@@ -108,7 +129,13 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
     ap.add_argument("--prefix-block-size", type=int, default=8,
                     help="prefix cache only: tokens per block (should divide the "
                          "prefill buckets, or chains never anchor)")
-    ap.add_argument("--sampling", default="greedy", choices=SAMPLING_MODES)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="continuous / slo: admit a prompt as chunk programs of this "
+                         "many tokens (one program per chunk width), one chunk a tick "
+                         "with decode steps between them")
+    ap.add_argument("--sampling", default="greedy", choices=SAMPLING_MODES,
+                    help="greedy argmax, or categorical draws seeded by --seed per "
+                         "(request, position)")
     ap.add_argument("--weight-form", default="fp16", choices=WEIGHT_FORMS,
                     help="stored weight form: fp16 = dense (anemm); int4_palette / "
                          "sparse = packed after init (palette / sparse kernels)")
@@ -157,19 +184,33 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
     max_len = max(p.size for r in rounds for p in r) + args.gen
 
     program_cache = ProgramCache()
-    kw = {"n_slots": args.batch} if args.schedule in ("continuous", "spec") else {}
-    if args.schedule == "spec":
+    if args.schedule in ("slo", "spec"):
         stream = AsyncExecutionStream(program_cache, device=device,
                                       max_in_flight=args.max_in_flight)
-        kw.update(draft_depth=args.draft_depth, draft=args.draft,
-                  draft_branches=args.draft_branches)
     else:
         stream = ExecutionStream(program_cache, device=device)
-    if args.prefix_cache:
-        kw.update(prefix_cache=True, prefix_blocks=args.prefix_blocks,
-                  prefix_block_size=args.prefix_block_size)
-    engine = SCHEDULES[args.schedule](model, params, cfg, max_len=max_len,
-                                      sampling=args.sampling, stream=stream, **kw)
+    # each schedule-specific knob group is a section; validate() refuses a
+    # section the chosen schedule cannot apply, except that the sequential
+    # schedule drops the pool's knobs with a warning
+    prefix = None
+    if args.prefix_cache and args.schedule == "sequential":
+        warnings.warn("--prefix-cache does not apply to the sequential schedule (the "
+                      "prefix pool rides slot admission); dropped", UserWarning, stacklevel=2)
+    elif args.prefix_cache:
+        prefix = PrefixConfig(blocks=args.prefix_blocks, block_size=args.prefix_block_size)
+    config = ServeConfig(
+        schedule=args.schedule, max_len=max_len, n_slots=args.batch,
+        sampling=args.sampling, seed=args.seed, stream=stream,
+        slo=SLOConfig(slo_ms=args.slo_ms, max_in_flight=args.max_in_flight)
+        if args.schedule == "slo" else None,
+        spec=SpecConfig(draft_depth=args.draft_depth, draft=args.draft,
+                        draft_branches=args.draft_branches,
+                        max_in_flight=args.max_in_flight)
+        if args.schedule == "spec" else None,
+        prefix=prefix,
+        chunk=ChunkConfig(prefill_chunk=args.prefill_chunk)
+        if args.prefill_chunk is not None else None)
+    engine = build_scheduler(config, model, params, cfg)
 
     round_results = []
     native.reset_launch_counts()
@@ -218,13 +259,23 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
         "engine": engine,
         **stats,
     }
-    spec_note = ""
+    schedule_note = ""
     if args.schedule == "spec":
-        spec_note = (f" | {args.draft} drafter depth {args.draft_depth} "
-                     f"x{stats['draft_branches']} branches: {stats['n_windows']} windows "
-                     f"{stats['windows_by_kind']}, acceptance "
-                     f"{stats['acceptance_rate']:.2f}, "
-                     f"{stats['tokens_per_window_dispatch']:.2f} tok/window-dispatch")
+        schedule_note = (f" | {args.draft} drafter depth {args.draft_depth} "
+                         f"x{stats['draft_branches']} branches: {stats['n_windows']} windows "
+                         f"{stats['windows_by_kind']}, acceptance "
+                         f"{stats['acceptance_rate']:.2f}, "
+                         f"{stats['tokens_per_window_dispatch']:.2f} tok/window-dispatch")
+    if args.schedule == "slo":
+        schedule_note = (f" | in-flight<= {stats['max_in_flight']} (mean depth "
+                         f"{stats['mean_inflight_depth']:.2f}), "
+                         f"{stats['deferred_admissions']} deferred admissions, pred p99 "
+                         f"token {stats['predicted_token_latency_s']*1e3:.2f} ms")
+    chunk_note = ""
+    if "chunked_prefill" in stats:
+        cp = stats["chunked_prefill"]
+        chunk_note = (f" | chunked prefill C={cp['prefill_chunk']}: {cp['n_chunks']} "
+                      f"chunks / {cp['chunk_tokens']} prompt tokens")
     prefix_note = ""
     if "prefix_cache" in stats:
         pc = stats["prefix_cache"]
@@ -239,7 +290,7 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
           f"{stats['per_request_dispatch_overhead_s']*1e6:.1f} us | "
           f"program cache h{cstats.hits}/m{cstats.misses}, compile "
           f"{cstats.compile_seconds*1e3:.1f} ms, graphs {cstats.captures} captured "
-          f"/ {cstats.replays} replays{prefix_note}{spec_note}")
+          f"/ {cstats.replays} replays{prefix_note}{chunk_note}{schedule_note}")
     route_text = ", ".join(f"{k}/{b}: {n}" for (k, b), n in sorted(routes.items()))
     print(f"device {device} | measured floor {stream.floor_s*1e6:.1f} us/dispatch | "
           f"routes {route_text} | kernel launches "

@@ -1,13 +1,18 @@
-"""Speculative decoding on the overlapped stream: greedy chain and tree windows.
+"""Speculative decoding on the overlapped stream: chain and tree windows,
+greedy or seeded categorical.
 
 After `src/repro/launch/speculative.py`. A cheaper drafter proposes K tokens
-per lane in one dispatch; one verify dispatch runs K+1 target decode steps
-teacher-forced on the proposals, takes the target's pick at every position
-and the accepted prefix on the card through the `specdec` kernel, and rolls
-back every rejected cache write. Each window emits `accept + 1` tokens per
-lane for exactly two floor-charged dispatches, and the emitted tokens are
-always the target's picks, so greedy streams are token-exact against
-`SequentialSchedule` whatever the drafter proposed.
+per lane in one dispatch, with the target sampler's own rule (greedy argmax,
+or the per-(rid, pos) categorical draw); one verify dispatch runs K+1 target
+decode steps teacher-forced on the proposals, turns their logits into score
+rows (`specdec_ops.seeded_scores`: the fp32 logits, or the logits plus the
+gumbel noise of each (rid, position)'s key), takes the first-index argmax at
+every position and the accepted prefix on the card through the `specdec`
+kernel, and rolls back every rejected cache write. Each window emits
+`accept + 1` tokens per lane for exactly two floor-charged dispatches, and
+the emitted tokens are always the target sampler's picks, so greedy streams
+are token-exact against `SequentialSchedule` and categorical streams are the
+same under every schedule, whatever the drafter proposed.
 
   * **Drafter** — `draft_of(cfg)` depth-prunes a config (same widths and
     vocab); `Drafter.shrink` builds it through `build_model` on the target's
@@ -16,13 +21,14 @@ always the target's picks, so greedy streams are token-exact against
     reference's, bridged through `bridge.params_from_numpy`);
     `Drafter.self_draft` drafts with the target itself, its own caches apart.
   * **Tree windows** (`draft_branches > 1`) — the draft dispatch branches at
-    the window root on the drafter's top-N (a stable descending sort, so the
-    lower index comes first on ties, as `jax.lax.top_k` orders them) and
-    extends each branch greedily; the verify dispatch tiles the target's
-    caches to B*N rows (lane b's branches at rows b*N .. b*N+N-1,
-    `repeat_interleave`), and the `specdec_tree` kernel keeps the first
-    branch with the longest accepted prefix. A window with K = 0 runs the
-    chain kernel, also in a tree run.
+    the window root on the drafter's top-N of its first row (gumbel-perturbed
+    under categorical sampling, so branch 0 is the chain's draw; a stable
+    descending sort, so the lower index comes first on ties, as
+    `jax.lax.top_k` orders them) and extends each branch with the sampler's
+    rule; the verify dispatch tiles the target's caches to B*N rows (lane
+    b's branches at rows b*N .. b*N+N-1, `repeat_interleave`), and the
+    `specdec_tree` kernel keeps the first branch with the longest accepted
+    prefix. A window with K = 0 runs the chain kernel, also in a tree run.
   * **Rollback** — decode writes the caches in place (the reference donates
     them), so the positional slots a window will clobber are copied out
     before its first step (gather copies) and written back after the
@@ -35,10 +41,10 @@ always the target's picks, so greedy streams are token-exact against
     card every program (draft, verify, tree draft and verify, joint
     catch-up and prefill; one per memo entry) replays as a CUDA graph: the
     draft's outputs are copied into the verify graph's static inputs, and
-    the rollback's index writes are device ops, captured with the rest.
+    the rollback's index writes and the threefry / gumbel arithmetic of a
+    categorical window are device ops, captured with the rest.
 
-Loading a distilled drafter waits for the checkpoint reader (ROADMAP A.6);
-categorical sampling for `jax.random`'s generator in torch (A.2).
+Loading a distilled drafter waits for the checkpoint reader (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -53,8 +59,8 @@ import torch
 from repro_torch.core.dispatch import AsyncExecutionStream
 from repro_torch.kernels.specdec import ops as specdec_ops
 from repro_torch.launch.scheduler import (SCHEDULES, TIME_MERGE_LEAVES, ContinuousSchedule,
-                                          _host_row, _leaf_name, admit_into_slot,
-                                          bucket_for, reset_slot)
+                                          _leaf_name, admit_into_slot, bucket_for,
+                                          reset_slot)
 from repro_torch.models.model import build_model
 from repro_torch.tree import leaves_with_path, tree_map
 
@@ -188,11 +194,6 @@ def top_candidates(row: torch.Tensor, n: int) -> torch.Tensor:
     return torch.sort(row, dim=-1, descending=True, stable=True).indices[:, :n].to(torch.int32)
 
 
-def _greedy(lg: torch.Tensor, vocab: int) -> torch.Tensor:
-    """The drafter's proposal: first-index argmax of the last step's fp32 row."""
-    return torch.argmax(lg[:, -1, :vocab].float(), dim=-1).to(torch.int32)
-
-
 # ---------------------------------------------------------------------------
 # The schedule
 # ---------------------------------------------------------------------------
@@ -218,9 +219,15 @@ class SpeculativeSchedule(ContinuousSchedule):
 
     name = "spec"
 
+    #: in-flight window when this schedule builds its own stream: draft and
+    #: verify of one window
+    MAX_IN_FLIGHT = 2
+
     def __init__(self, model, params, cfg, *, n_slots: int, max_len: int,
-                 stream: AsyncExecutionStream, draft_depth: int = 4, draft: str = "shrink",
-                 drafter: Drafter | None = None, draft_branches: int = 1, **kw) -> None:
+                 draft_depth: int = 4, draft: str = "shrink",
+                 drafter: Drafter | None = None, draft_branches: int = 1,
+                 max_in_flight: int = MAX_IN_FLIGHT,
+                 stream: AsyncExecutionStream | None = None, **kw) -> None:
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "SpeculativeSchedule: speculative decoding of an encoder-decoder "
@@ -235,6 +242,9 @@ class SpeculativeSchedule(ContinuousSchedule):
                 "SpeculativeSchedule does not chunk prefill: admission stages the target "
                 "AND drafter caches jointly. Serve chunked-prefill traffic with "
                 "--schedule continuous.")
+        if stream is None:
+            stream = AsyncExecutionStream(kw.get("program_cache"), device=model.device,
+                                          max_in_flight=max_in_flight)
         if not isinstance(stream, AsyncExecutionStream):
             raise ValueError("SpeculativeSchedule pipelines draft->verify windows through "
                              f"AsyncExecutionStream; got {type(stream).__name__}")
@@ -298,17 +308,23 @@ class SpeculativeSchedule(ContinuousSchedule):
             memo[sig] = hit
         return hit
 
-    def _draft_program(self, tok, p0, k: int):
-        """K+1 drafter steps: consume the chain from `tok`, propose greedily;
-        the extra step consumes the last proposal, so an accept-all window
-        leaves the drafter's stream contiguous (its proposal is dropped)."""
-        model, vocab = self.drafter.model, self.cfg.vocab
+    def _propose(self, lg: torch.Tensor, rids: torch.Tensor, positions: torch.Tensor):
+        """The drafter's proposal from its last step's logits: the target
+        sampler's pick at `positions` (greedy argmax, or the seeded draw)."""
+        return self.sampler.draw(lg[:, -1], rids, positions).to(torch.int32)
 
-        def fused(params, caches, tok0, p0):
+    def _draft_program(self, tok, p0, rids, k: int):
+        """K+1 drafter steps: consume the chain from `tok`, propose with the
+        target sampler's rule; the extra step consumes the last proposal, so
+        an accept-all window leaves the drafter's stream contiguous (its
+        proposal is dropped)."""
+        model = self.drafter.model
+
+        def fused(params, caches, tok0, p0, rids):
             tok, props = tok0, []
             for i in range(k + 1):
                 caches, lg = model.decode_step(params, caches, tok, p0 + i)
-                prop = _greedy(lg, vocab)
+                prop = self._propose(lg, rids, p0 + i + 1)
                 props.append(prop)
                 tok = prop[:, None]
             return caches, torch.stack(props[:k], dim=1)          # (B, K)
@@ -316,16 +332,24 @@ class SpeculativeSchedule(ContinuousSchedule):
         return self._memo(self._draft_memo, self._draft_keys,
                           (k, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.drafter.params,
-                                                     self.draft_caches, tok, p0,
-                                                     options=f"k={k}", per_call=(2, 3)))
+                                                     self.draft_caches, tok, p0, rids,
+                                                     options=f"k={k}", per_call=(2, 3, 4)))
 
-    def _verify_program(self, tok, p0, drafts, k: int):
+    def _scores(self, rows: list[torch.Tensor], rids: torch.Tensor, p0: torch.Tensor):
+        """The verify's score rows (B, K+1, V): position p0 + 1 + t's row t,
+        greedy or gumbel-perturbed by its (rid, position) key."""
+        scores = torch.stack(rows, dim=1)
+        positions = p0.long()[:, None] + 1 + torch.arange(len(rows), device=p0.device)[None]
+        return specdec_ops.seeded_scores(scores, self.sampler.root(scores.device), rids,
+                                         positions, self.sampler.mode)
+
+    def _verify_program(self, tok, p0, drafts, rids, k: int):
         """K+1 target steps teacher-forced on the proposals, the `specdec`
         kernel, and the rollback of every rejected cache write."""
         model, vocab = self.model, self.cfg.vocab
-        mode, disp = self.sampler.mode, self.model.dispatcher
+        disp = self.model.dispatcher
 
-        def fused(params, caches, tok0, p0, drafts):
+        def fused(params, caches, tok0, p0, drafts, rids):
             leaves = _positional_leaves(caches)
             saved = [_gather_slots(leaf, _window_slots(leaf, p0, k)) for leaf in leaves] \
                 if k else []
@@ -335,7 +359,7 @@ class SpeculativeSchedule(ContinuousSchedule):
                 rows.append(lg[:, -1, :vocab].float())
                 if k:
                     tok = drafts[:, min(i, k - 1)][:, None]
-            scores = specdec_ops.seeded_scores(torch.stack(rows, dim=1), mode)
+            scores = self._scores(rows, rids, p0)
             samples, accept = specdec_ops.verify_accept(scores, drafts, dispatcher=disp)
             if k:
                 _restore_rejected(leaves, saved, p0, accept, k)
@@ -344,29 +368,35 @@ class SpeculativeSchedule(ContinuousSchedule):
         return self._memo(self._verify_memo, self._verify_keys,
                           (k, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.params, self.caches, tok,
-                                                     p0, drafts, options=f"k={k}",
-                                                     per_call=(2, 3, 4)))
+                                                     p0, drafts, rids, options=f"k={k}",
+                                                     per_call=(2, 3, 4, 5)))
 
-    def _draft_tree_program(self, tok, p0, k: int):
+    def _draft_tree_program(self, tok, p0, rids, k: int):
         """The tree window's draft: step 0 on the B lanes ranks the drafter's
-        candidates for the window's first proposal; the caches tile to B*nbr
-        rows (lane b's branches at rows b*nbr .. b*nbr+nbr-1), each branch
-        starts at one of the top-nbr candidates (branch 0: the chain
-        proposal) and extends greedily; the last of the k tiled steps only
-        keeps the drafter's stream contiguous."""
+        candidates for the window's first proposal (its row, perturbed by
+        the (rid, p0 + 1) gumbel under categorical sampling, so the top one
+        is the chain's draw); the caches tile to B*nbr rows (lane b's
+        branches at rows b*nbr .. b*nbr+nbr-1), each branch starts at one of
+        the top-nbr candidates (branch 0: the chain proposal) and extends
+        with the sampler's rule; the last of the k tiled steps only keeps
+        the drafter's stream contiguous."""
         nbr = self.draft_branches
         model, vocab = self.drafter.model, self.cfg.vocab
 
-        def fused(params, caches, tok0, p0):
+        def fused(params, caches, tok0, p0, rids):
             caches, lg = model.decode_step(params, caches, tok0, p0)
-            roots = top_candidates(lg[:, -1, :vocab].float(), nbr)   # (B, nbr)
+            row = specdec_ops.seeded_scores(
+                lg[:, -1:, :vocab], self.sampler.root(lg.device), rids, p0.long()[:, None] + 1,
+                self.sampler.mode)[:, 0]
+            roots = top_candidates(row, nbr)                        # (B, nbr)
             tiled = tree_map(lambda leaf: leaf.repeat_interleave(nbr, dim=1), caches)
             tokt = roots.reshape(-1, 1)                             # (B*nbr, 1)
             p0t = p0.repeat_interleave(nbr)
+            ridt = rids.repeat_interleave(nbr)
             tok, props = tokt, []
             for i in range(k):
                 tiled, lg = model.decode_step(params, tiled, tok, p0t + 1 + i)
-                prop = _greedy(lg, vocab)
+                prop = self._propose(lg, ridt, p0t + i + 2)
                 props.append(prop)
                 tok = prop[:, None]
             drafts = torch.cat([tokt] + [p[:, None] for p in props[:k - 1]], dim=1)
@@ -375,11 +405,11 @@ class SpeculativeSchedule(ContinuousSchedule):
         return self._memo(self._draft_memo, self._draft_keys,
                           (k, nbr, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.drafter.params,
-                                                     self.draft_caches, tok, p0,
+                                                     self.draft_caches, tok, p0, rids,
                                                      options=f"k={k} nbr={nbr}",
-                                                     per_call=(2, 3)))
+                                                     per_call=(2, 3, 4)))
 
-    def _verify_tree_program(self, dcaches_tiled, tok, p0, drafts, k: int):
+    def _verify_tree_program(self, dcaches_tiled, tok, p0, drafts, rids, k: int):
         """One dispatch scores the whole tree: the target's caches tile to
         B*nbr rows, K+1 steps run every branch teacher-forced, the
         `specdec_tree` kernel picks each lane's winning branch, and the
@@ -390,9 +420,9 @@ class SpeculativeSchedule(ContinuousSchedule):
         rows in place, so every window binds the same storage."""
         nbr = self.draft_branches
         model, vocab = self.model, self.cfg.vocab
-        mode, disp = self.sampler.mode, self.model.dispatcher
+        disp = self.model.dispatcher
 
-        def fused(params, caches, dcaches, dtiled, tok0, p0, drafts):
+        def fused(params, caches, dcaches, dtiled, tok0, p0, drafts, rids):
             leaves = _positional_leaves(caches)
             # every branch clobbers the same slots: save them per lane, untiled
             saved = [_gather_slots(leaf, _window_slots(leaf, p0, k)) for leaf in leaves]
@@ -405,7 +435,7 @@ class SpeculativeSchedule(ContinuousSchedule):
                 tiled, lg = model.decode_step(params, tiled, tok, p0t + i)
                 rows.append(lg[:, -1, :vocab].float())
                 tok = dflat[:, min(i, k - 1)][:, None]
-            scores = specdec_ops.seeded_scores(torch.stack(rows, dim=1), mode)
+            scores = self._scores(rows, rids.repeat_interleave(nbr), p0t)
             samples, accept, branch = specdec_ops.verify_accept_tree(
                 scores.reshape(b, nbr, k + 1, scores.shape[-1]), drafts, dispatcher=disp)
             win = torch.arange(b, device=branch.device) * nbr + branch.long()
@@ -416,14 +446,14 @@ class SpeculativeSchedule(ContinuousSchedule):
                                dcaches, dtiled)
             return caches, dcaches, samples, accept, branch
 
-        # per call: the draft's tiled caches, token, positions and drafts
+        # per call: the draft's tiled caches, token, positions, drafts, rids
         return self._memo(self._verify_memo, self._verify_keys,
                           (k, nbr, tuple(tok.shape), tuple(p0.shape)),
                           lambda: self.cache.compile(fused, self.params, self.caches,
                                                      self.draft_caches, dcaches_tiled,
-                                                     tok, p0, drafts,
+                                                     tok, p0, drafts, rids,
                                                      options=f"k={k} nbr={nbr}",
-                                                     per_call=(3, 4, 5, 6)))
+                                                     per_call=(3, 4, 5, 6, 7)))
 
     def _joint_program(self, tok, pos):
         """Prompt catch-up: one dispatch steps target AND drafter on the same
@@ -471,7 +501,7 @@ class SpeculativeSchedule(ContinuousSchedule):
             if bucket < L:        # catch up through decode, teacher-forced
                 slot.next_tok = int(req.prompt[bucket])
             else:                 # prompt fully prefilled: sample token L
-                tok = self.sampler(_host_row(logits, self.cfg.vocab)[0], req.rid, L)
+                tok = self.sampler(logits[0, -1], req.rid, L)
                 slot.generated.append(tok)
                 slot.next_tok = tok
         slot.req = req
@@ -511,30 +541,33 @@ class SpeculativeSchedule(ContinuousSchedule):
         results.sort(key=lambda r: r.rid)
         return results
 
-    def _lane_arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """(B, 1) next tokens and (B,) next positions of the active lanes."""
+    def _lane_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(B, 1) next tokens, (B,) next positions and (B,) rids of the
+        active lanes."""
         tok = np.zeros((self.n_slots, 1), np.int32)
         pos = np.zeros((self.n_slots,), np.int32)
+        rids = np.zeros((self.n_slots,), np.int32)
         for i, s in enumerate(self.slots):
             if s.active:
                 tok[i, 0] = s.next_tok
                 pos[i] = s.next_pos
-        return tok, pos
+                rids[i] = s.req.rid
+        return tok, pos, rids
 
     def _catchup_step(self, results: list, step: int) -> int:
         """One joint teacher-forced tick while any lane is inside its prompt."""
-        tok, pos = self._lane_arrays()
+        tok, pos, _ = self._lane_arrays()
         tokj, posj = self._tokens(tok), self._tokens(pos)
         prog, key = self._joint_program(tokj, posj)
+        lanes = self._decoding()
         self.stream.encode_operation(
             prog, (self.params, self.drafter.params, self.caches, self.draft_caches,
-                   tokj, posj), key, batch=sum(s.active for s in self.slots))
+                   tokj, posj), key, batch=len(lanes))
         self.caches, self.draft_caches, logits = self.stream.execute_sync()[0]
         self.catchup_steps += 1
-        lg = _host_row(logits, self.cfg.vocab)
-        for i, s in enumerate(self.slots):
-            if s.active:
-                self._advance(s, lg[i], results, step)
+        picks = self._sample_lanes(logits, lanes)
+        for i in lanes:
+            self._advance(self.slots[i], picks.get(i), results, step)
         return step + 1
 
     def _min_positional_size(self) -> int:
@@ -569,26 +602,26 @@ class SpeculativeSchedule(ContinuousSchedule):
     def _spec_window(self, queue: list, results: list, step: int) -> int:
         active = [s for s in self.slots if s.active]
         k = self._window_depth(active, queue, step)
-        tok, p0 = self._lane_arrays()
-        tokj, p0j = self._tokens(tok), self._tokens(p0)
+        tok, p0, rids = self._lane_arrays()
+        tokj, p0j, ridsj = self._tokens(tok), self._tokens(p0), self._tokens(rids)
         if k > 0 and self.draft_branches > 1:
-            prog, dkey = self._draft_tree_program(tokj, p0j, k)
+            prog, dkey = self._draft_tree_program(tokj, p0j, ridsj, k)
             self.stream.encode_operation(prog, (self.drafter.params, self.draft_caches,
-                                                tokj, p0j), dkey, batch=len(active))
+                                                tokj, p0j, ridsj), dkey, batch=len(active))
             dtiled, drafts = self._submit()
             self.draft_steps += k + 1
-            prog, vkey = self._verify_tree_program(dtiled, tokj, p0j, drafts, k)
+            prog, vkey = self._verify_tree_program(dtiled, tokj, p0j, drafts, ridsj, k)
             self.stream.encode_operation(prog, (self.params, self.caches, self.draft_caches,
-                                                dtiled, tokj, p0j, drafts), vkey,
+                                                dtiled, tokj, p0j, drafts, ridsj), vkey,
                                          batch=len(active))
             self.caches, self.draft_caches, samples, accept, branch = self._submit()
             self.window_kinds["tree"] += 1
         else:
             branch = None
             if k > 0:
-                prog, dkey = self._draft_program(tokj, p0j, k)
+                prog, dkey = self._draft_program(tokj, p0j, ridsj, k)
                 self.stream.encode_operation(prog, (self.drafter.params, self.draft_caches,
-                                                    tokj, p0j), dkey, batch=len(active))
+                                                    tokj, p0j, ridsj), dkey, batch=len(active))
                 # no wait: the proposals chain into the verify as a live tensor
                 self.draft_caches, drafts = self._submit()
                 self.draft_steps += k + 1
@@ -596,9 +629,9 @@ class SpeculativeSchedule(ContinuousSchedule):
                 drafts = torch.zeros((self.n_slots, 0), dtype=torch.int32,
                                      device=self.device)
                 self.bonus_windows += 1
-            prog, vkey = self._verify_program(tokj, p0j, drafts, k)
-            self.stream.encode_operation(prog, (self.params, self.caches, tokj, p0j, drafts),
-                                         vkey, batch=len(active))
+            prog, vkey = self._verify_program(tokj, p0j, drafts, ridsj, k)
+            self.stream.encode_operation(prog, (self.params, self.caches, tokj, p0j, drafts,
+                                                ridsj), vkey, batch=len(active))
             self.caches, samples, accept = self._submit()
             self.window_kinds["chain"] += 1
         self.stream.sync()        # accept lengths are data: one sync per window

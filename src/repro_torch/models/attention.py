@@ -2,8 +2,9 @@
 
 After `src/repro/models/attention.py`, the non-MLA, no-window path:
 `init_kv_cache` (:268), `_qkv` (:285), `attention_forward` (:297),
-`_write_prefill_cache` (:353), the one-token `_append_cache` (:367-384),
-`_decode_attention` (:405), the forward of `chunked_attention` (:233),
+`_write_prefill_cache` (:353), `_append_cache` (:367-403) and
+`_decode_attention` (:405-435) for one token a lane and for a prefill chunk
+of C tokens a lane, the forward of `chunked_attention` (:233),
 which is the flash route's plain version, and the encoder-decoder's
 `cross_attention_forward` / `encode_cross_kv` (:518-542).
 
@@ -134,19 +135,25 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       positions: torch.Tensor, *, mode: str,
                       cache: Params | None = None) -> tuple[torch.Tensor, Params | None]:
     """x (B, S, D), positions (B, S) int32. prefill: attend causally through
-    the flash route and return the new cache; decode (S == 1): append to
-    `cache` in place and attend through the decode route."""
+    the flash route and return the new cache; decode: append the S tokens of
+    every lane to `cache` in place, then attend. One token a lane (S == 1,
+    a decode step) goes through the decode route; a prefill chunk (S == C)
+    attends each query up to its own position through the plain
+    `_decode_attention`, as the reference computes it outside any kernel."""
     q, k, v = _qkv(cfg, p, x, positions)
     disp = dsp.active_dispatcher()
     if mode == "prefill":
         out = dsp.flash_route(disp, q, k, v, causal=True)
         new_cache = _write_prefill_cache(k, v, positions)
     elif mode == "decode":
-        if cache is None or x.shape[1] != 1:
-            raise ValueError("decode: one token per lane against a cache")
+        if cache is None:
+            raise ValueError("decode: the tokens attend a cache")
         new_cache = _append_cache(cache, {"k": k, "v": v}, positions)
-        out = dsp.decode_route(disp, q[:, 0], new_cache["k"], new_cache["v"],
-                               new_cache["pos"], positions[:, 0])[:, None]
+        if x.shape[1] == 1:
+            out = dsp.decode_route(disp, q[:, 0], new_cache["k"], new_cache["v"],
+                                   new_cache["pos"], positions[:, 0])[:, None]
+        else:
+            out = _decode_attention(q, new_cache, positions)
     else:
         raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
     out = dsp.linear(out, p["wo"], n_contract=2, bias=p.get("bo"))
@@ -158,35 +165,42 @@ def _write_prefill_cache(k, v, positions):
 
 
 def _append_cache(cache: Params, kv_new: Params, positions: torch.Tensor) -> Params:
-    """Write the one new token of every lane at slot pos % size, in place."""
+    """Write the S new tokens of every lane at slots pos % size, in place.
+    A chunk's positions are consecutive, so up to `size` of them land on
+    distinct slots in one write; a longer chunk is written token by token,
+    so later positions overwrite the oldest slots as S decode steps would
+    (the reference's sequential loop)."""
     size = cache["pos"].shape[1]
-    pos = positions[:, 0]                              # (B,)
-    slot = (pos % size).long()
-    bidx = torch.arange(pos.shape[0], device=pos.device)
-    for name, new in kv_new.items():
-        cache[name][bidx, slot] = new[:, 0].to(cache[name].dtype)
-    cache["pos"][bidx, slot] = pos
+    b, s = positions.shape
+    bidx = torch.arange(b, device=positions.device)[:, None]
+    runs = [(0, s)] if s <= size else [(i, i + 1) for i in range(s)]
+    for lo, hi in runs:
+        pos = positions[:, lo:hi]                      # (B, n)
+        slot = (pos % size).long()
+        for name, new in kv_new.items():
+            cache[name][bidx, slot] = new[:, lo:hi].to(cache[name].dtype)
+        cache["pos"][bidx, slot] = pos
     return cache
 
 
 def _decode_attention(q, cache, positions, window: int | None = None):
-    """The plain decode path, q (B, 1, H, dh) against cache (B, Smax, KV, dh)
-    with the validity mask (reference :405, one-token case)."""
+    """The plain decode path (reference :405): q (B, S, H, dh) against the
+    cache (B, Smax, KV, dh) under its validity mask, each query up to its own
+    position: S == 1 is a decode step, S == C a prefill chunk."""
     b, sq, h, dh = q.shape
-    if sq != 1:
-        raise ValueError("the port's plain decode path takes one token per lane")
     kvh = cache["k"].shape[2]
     g = h // kvh
-    qg = q.reshape(b, 1, kvh, g, dh)
-    s = torch.einsum("bqkgd,bckd->bkgc", qg.float(), cache["k"].float()) * dh ** -0.5
-    cur = positions[:, 0][:, None]
-    valid = (cache["pos"] >= 0) & (cache["pos"] <= cur)
+    qg = q.reshape(b, sq, kvh, g, dh)
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg.float(), cache["k"].float()) * dh ** -0.5
+    cpos = cache["pos"][:, None, :]                    # (B, 1, Smax)
+    cur = positions[:, :, None]                        # (B, S, 1)
+    valid = (cpos >= 0) & (cpos <= cur)
     if window:
-        valid &= (cur - cache["pos"]) < window
-    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+        valid &= (cur - cpos) < window
+    s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgc,bckd->bkgd", w, cache["v"].float())
-    return out.reshape(b, 1, h, dh).to(q.dtype)
+    out = torch.einsum("bqkgc,bckd->bqkgd", w, cache["v"].float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,13 @@ encoder-decoder.
 
 After `src/repro/models/model.py` (`Model` :42, `init` :68, `_backbone` :97,
 `forward` :119, `init_cache` :191, `prefill` :206, `decode_step` :216,
-`build_model` :298):
+`prefill_chunk` :225, `build_model` :298):
 
-    init(generator)                          -> params
-    prefill(params, batch)                   -> (caches, last_logits)
-    decode_step(params, caches, token, pos)  -> (caches, logits)
-    init_cache(batch, max_len)               -> caches
+    init(generator)                                -> params
+    prefill(params, batch)                         -> (caches, last_logits)
+    decode_step(params, caches, token, pos)        -> (caches, logits)
+    prefill_chunk(params, caches, tokens, pos0)    -> (caches, last_logits)
+    init_cache(batch, max_len)                     -> caches
 
 Every matmul and attention cell runs through the model's `KernelDispatcher`
 (the port has no undispatched path): on a CUDA device the hand-written
@@ -121,6 +122,21 @@ class Model:
                                  caches=caches)
         with dsp.use_dispatcher(self.dispatcher):
             lg = logits_fn(self.cfg, params["embed"], h)
+        return caches, lg
+
+    @torch.no_grad()
+    def prefill_chunk(self, params: Params, caches, tokens: torch.Tensor,
+                      pos0: torch.Tensor):
+        """One prefill chunk: the C prompt tokens `tokens` (B, C) int32 from
+        absolute position `pos0` (B,) int32 written into the decode-shaped
+        `caches` in place, as C decode steps would write them, each attending
+        up to its own position. Returns (caches, the last token's logits),
+        the contract of `prefill`; (B, C) is the program's whole shape."""
+        c = tokens.shape[1]
+        positions = pos0[:, None] + torch.arange(c, dtype=pos0.dtype, device=pos0.device)[None]
+        h, caches = self.forward(params, tokens, positions, mode="decode", caches=caches)
+        with dsp.use_dispatcher(self.dispatcher):
+            lg = logits_fn(self.cfg, params["embed"], h[:, -1:])
         return caches, lg
 
 

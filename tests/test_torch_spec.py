@@ -69,19 +69,30 @@ def reference_model():
     return _REF["model"]
 
 
-def reference_spec(draft: str, branches: int) -> dict:
-    """The reference SpeculativeSchedule on the parity setting, with its
-    counts and its drafter's params as numpy."""
-    key = ("spec", draft, branches)
+# the reference's categorical cases (`tests/test_serve_scheduler.py:842,1084`)
+CAT_LENS, CAT_GEN, CAT_LANES = (10, 6), 4, 2
+
+
+def _setting(sampling: str) -> tuple:
+    """(prompt lengths, tokens, lanes) of the greedy parity setting or of the
+    reference's categorical cases."""
+    return (PARITY_LENS, GEN, LANES) if sampling == "greedy" else (CAT_LENS, CAT_GEN, CAT_LANES)
+
+
+def reference_spec(draft: str, branches: int, sampling: str = "greedy") -> dict:
+    """The reference SpeculativeSchedule on the parity setting (greedy) or
+    the categorical cases' setting, with its counts and its drafter's params
+    as numpy."""
+    key = ("spec", draft, branches, sampling)
     if key not in _REF:
+        lens, gen, lanes = _setting(sampling)
         jcfg, jmodel, jparams = reference_model()
         cache = JCache()
-        sched = JSpec(jmodel, jparams, jcfg, n_slots=LANES, max_len=max(PARITY_LENS) + GEN,
-                      sampling="greedy", seed=0, stream=JAsync(cache, target=V5E),
+        sched = JSpec(jmodel, jparams, jcfg, n_slots=lanes, max_len=max(lens) + gen,
+                      sampling=sampling, seed=0, stream=JAsync(cache, target=V5E),
                       draft=draft, draft_depth=DEPTH, draft_branches=branches)
-        res = sched.run([JRequest(i, p, GEN)
-                         for i, p in enumerate(_prompts(jcfg.vocab, PARITY_LENS))])
-        st = sched.stats(len(PARITY_LENS))
+        res = sched.run([JRequest(i, p, gen) for i, p in enumerate(_prompts(jcfg.vocab, lens))])
+        st = sched.stats(len(lens))
         _REF[key] = {
             "tokens": {r.rid: r.tokens for r in res},
             "counts": spec_counts(st, cache),
@@ -90,15 +101,15 @@ def reference_spec(draft: str, branches: int) -> dict:
     return _REF[key]
 
 
-def reference_sequential() -> dict:
-    if "seq" not in _REF:
+def reference_sequential(sampling: str = "greedy") -> dict:
+    if ("seq", sampling) not in _REF:
+        lens, gen, _ = _setting(sampling)
         jcfg, jmodel, jparams = reference_model()
-        sched = JSequential(jmodel, jparams, jcfg, max_len=max(PARITY_LENS) + GEN,
-                            sampling="greedy", seed=0, stream=JStream(JCache(), target=V5E))
-        res = sched.run([JRequest(i, p, GEN)
-                         for i, p in enumerate(_prompts(jcfg.vocab, PARITY_LENS))])
-        _REF["seq"] = {r.rid: r.tokens for r in res}
-    return _REF["seq"]
+        sched = JSequential(jmodel, jparams, jcfg, max_len=max(lens) + gen,
+                            sampling=sampling, seed=0, stream=JStream(JCache(), target=V5E))
+        res = sched.run([JRequest(i, p, gen) for i, p in enumerate(_prompts(jcfg.vocab, lens))])
+        _REF["seq", sampling] = {r.rid: r.tokens for r in res}
+    return _REF["seq", sampling]
 
 
 def spec_counts(stats: dict, cache) -> dict:
@@ -116,34 +127,38 @@ def port_params():
     return _REF["port"]
 
 
-def port_spec(draft: str, branches: int):
-    """The port's SpeculativeSchedule on the parity setting, its shrink
-    drafter on the reference drafter's params. Returns (tokens, counts,
-    schedule)."""
+def port_spec(draft: str, branches: int, sampling: str = "greedy"):
+    """The port's SpeculativeSchedule on the setting of `sampling`, its
+    shrink drafter on the reference drafter's params. Returns (tokens,
+    counts, schedule)."""
+    lens, gen, lanes = _setting(sampling)
     cfg = configs.get_smoke(ARCH)
     model = build_model(cfg, KernelDispatcher(), device="cpu")   # a fresh route census
     params = port_params()
     drafter = None
     if draft == "shrink":
-        dparams = params_from_numpy(reference_spec(draft, branches)["drafter_params"],
+        dparams = params_from_numpy(reference_spec(draft, branches, sampling)["drafter_params"],
                                     draft_of(cfg), "cpu")
         drafter = Drafter.shrink(cfg, dispatcher=model.dispatcher, device="cpu",
                                  params=dparams)
     cache = ProgramCache()
-    sched = SpeculativeSchedule(model, params, cfg, n_slots=LANES,
-                                max_len=max(PARITY_LENS) + GEN,
+    sched = SpeculativeSchedule(model, params, cfg, n_slots=lanes, max_len=max(lens) + gen,
+                                sampling=sampling,
                                 stream=AsyncExecutionStream(cache, device="cpu"),
                                 draft=draft, drafter=drafter, draft_depth=DEPTH,
                                 draft_branches=branches)
-    res = sched.run([Request(i, p, GEN)
-                     for i, p in enumerate(_prompts(cfg.vocab, PARITY_LENS))])
-    return {r.rid: r.tokens for r in res}, spec_counts(sched.stats(len(PARITY_LENS)), cache), \
-        sched
+    res = sched.run([Request(i, p, gen) for i, p in enumerate(_prompts(cfg.vocab, lens))])
+    return {r.rid: r.tokens for r in res}, spec_counts(sched.stats(len(lens)), cache), sched
 
 
-def check_against_reference(draft: str, branches: int):
-    tokens, counts, sched = port_spec(draft, branches)
-    ref = reference_spec(draft, branches)
+def check_against_reference(draft: str, branches: int, sampling: str = "greedy"):
+    """The port's spec run against the reference's: tokens, windows,
+    proposals, acceptances, dispatches and ProgramCache counts; and against
+    the reference's sequential streams."""
+    tokens, counts, sched = port_spec(draft, branches, sampling)
+    for rid, want in reference_sequential(sampling).items():
+        np.testing.assert_array_equal(tokens[rid], want, err_msg=f"rid {rid}")
+    ref = reference_spec(draft, branches, sampling)
     for rid, want in ref["tokens"].items():
         np.testing.assert_array_equal(tokens[rid], want, err_msg=f"rid {rid}")
     assert counts == ref["counts"]
@@ -155,8 +170,6 @@ def check_against_reference(draft: str, branches: int):
 @pytest.mark.parametrize("draft", ["self", "shrink"])
 def test_spec_chain_matches_reference(draft):
     tokens, sched = check_against_reference(draft, 1)
-    for rid, want in reference_sequential().items():
-        np.testing.assert_array_equal(tokens[rid], want, err_msg=f"rid {rid}")
     assert sched.window_kinds["tree"] == 0
     if draft == "self":
         assert sched.acceptance_rate == 1.0
@@ -167,6 +180,20 @@ def test_spec_chain_matches_reference(draft):
     assert census[("specdec", "torch")] == sched.n_windows
     assert ("specdec_tree", "torch") not in census
     assert set(native.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("draft", ["self", "shrink"])
+def test_spec_categorical_schedule_invariance(draft):
+    """After the reference's `test_spec_categorical_schedule_invariance`
+    (:842): seeded categorical chain windows (the drafter proposes with the
+    per-(rid, pos) draw, the verify perturbs its rows by the same keys'
+    gumbel) emit the reference's sequential streams, with the reference
+    spec run's windows and acceptances; the self drafter draws what the
+    target draws, so nothing is rejected."""
+    _, sched = check_against_reference(draft, 1, "categorical")
+    if draft == "self":
+        assert sched.acceptance_rate == 1.0
+    assert sched.model.dispatcher.census()[("specdec", "torch")] == sched.n_windows
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,19 @@ def test_spec_tree_shrink_matches_reference():
     assert sched.accepted < sched.proposed  # the winning-branch rollback ran
 
 
+@pytest.mark.parametrize("draft", ["self", "shrink"])
+def test_spec_tree_categorical_schedule_invariance(draft):
+    """After the reference's `test_spec_tree_categorical_schedule_invariance`
+    (:1084): the root branches rank the drafter's gumbel-perturbed first
+    row, every branch shares the per-(rid, pos) noise, so the emitted
+    streams are the reference's sequential ones whichever branch wins, with
+    the reference spec run's windows and acceptances."""
+    _, sched = check_against_reference(draft, 2, "categorical")
+    assert sched.window_kinds["tree"] > 0
+    if draft == "self":
+        assert sched.acceptance_rate == 1.0
+
+
 def test_spec_tree_two_floors_per_window():
     _, sched = _serve("spec", [16, 16], 10, n_slots=2, draft="self", draft_depth=4,
                       draft_branches=2)

@@ -158,12 +158,19 @@ def test_wrappers_refuse_bad_operands():
 
 
 def test_seeded_scores_and_routing():
+    from repro_torch.core import prng
+
     lg = torch.randn(2, 3, 8, dtype=torch.bfloat16)
-    assert ops.seeded_scores(lg, "greedy").dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="A.2"):
-        ops.seeded_scores(lg, "categorical")
+    root = prng.seed_key(0)
+    rids, positions = torch.tensor([4, 9]), torch.tensor([[5, 6, 7], [1, 2, 3]])
+    greedy = ops.seeded_scores(lg, root, rids, positions, "greedy")
+    assert greedy.dtype == torch.float32 and torch.equal(greedy, lg.float())
+    # categorical: argmax of the scores is the sampler's draw at (rid, pos)
+    cat = ops.seeded_scores(lg, root, rids, positions, "categorical")
+    keys = prng.request_keys(root, rids, positions)
+    assert torch.equal(cat.argmax(-1), prng.categorical(keys, lg.float()))
     with pytest.raises(ValueError):
-        ops.seeded_scores(lg, "beam")
+        ops.seeded_scores(lg, root, rids, positions, "beam")
     disp = KernelDispatcher()
     scores, draft = lg.float(), torch.zeros(2, 2, dtype=torch.int32)
     got = ops.verify_accept(scores, draft, dispatcher=disp)
