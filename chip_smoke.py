@@ -65,15 +65,22 @@ printing one JSON line for each:
                library call computing the same function, beside the bound
                (bytes at the memory rate or operations at the peak rate,
                whichever is larger), and the kernel's eager per-call time;
+               the float16 decode and paged decode (every registry case,
+               and timed at ane-paper's shape: 8 lanes, 8/8 heads, d 128,
+               544 slots; decode's 8 of 16 lanes and reruns bit for bit);
   4. parity  — the smoke model's prefill and decode logits on the card
                (kernels) against the same weights on the CPU (plain versions),
                dense and packed (int4_palette, sparse), fp32 and bf16; the
-               same for whisper-small smoke (frames through the conv stem);
+               same for whisper-small smoke (frames through the conv stem),
+               and for every arch of the archs phase at smoke size, fp32 and
+               its own dtype;
   5. rows    — full tinyllama-1.1b decode steps on 8 lanes and on the same
                8 lanes twice over (16 rows): the first 8 rows' logits must be
                equal bit for bit (a tree verify window runs 16 rows where
                decode runs 8, and the spec streams must equal the continuous
-               ones);
+               ones); the same for full granite-8b, chameleon-34b (8
+               layers: QK-norm) and dbrx-132b (4 layers: the MoE router and
+               combine);
   6. sampling — jax's threefry chain (`core.prng`) on the card against
                the same code on the CPU: the known key data of PRNGKey(0)
                -> fold_in(3) -> fold_in(17), the (rid, pos) keys, 32-bit
@@ -112,7 +119,7 @@ printing one JSON line for each:
                kernel, the device's busy share, and the trace's instances of
                each of the port's kernels, which must equal the launches the
                host counted in that round (the tracer drops a record now and
-               then: such a round is traced again, up to 5 rounds);
+               then: such a round is traced again, up to 10 rounds);
   10. prefix — the same model (fp16 form) served twice by the serve CLI's
                entry point on 8 lanes, 16 requests over two rounds, each
                round one 256-token system prompt (drawn from the seed)
@@ -179,10 +186,30 @@ printing one JSON line for each:
                request; the pools routed once at the pyramid shapes; a
                profiled second round as in phase 9; and the same requests
                through `--schedule slo`, whose streams must equal the
-               continuous run's.
+               continuous run's;
+  14. encoder_forms — the same whisper-small under int4_palette and sparse
+               (packed on the card): the encoder's and decoder's attention,
+               the MLPs and the head through the form's kernel, the stem
+               dense; exact launches, `pack_s`, tok/s;
+  15. encoder_spec — the same through `--schedule spec`, drafters self
+               and shrink (one encoder and one decoder layer): streams equal
+               to the continuous run's, two dispatches a window, exact
+               launches;
+  16. archs  — every config this slice adds, served through the serve
+               CLI's entry point (continuous, 8 lanes, the serve phase's
+               prompts, 32 tokens, one round; random weights from the seed):
+               ane-paper (float16), phi4-mini-3.8b and granite-8b whole,
+               command-r-35b and chameleon-34b at 8 layers and dbrx-132b at
+               4 (full widths; each cut and its reason on the line, as
+               `reduced`): every route cuda, captures = misses, each
+               kernel's launches exactly as the config implies (anemm 7 a
+               layer and the head for a dense arch, 4 + 3 per expert bank
+               for dbrx's MoE layers), tok/s, the decode step's median, the
+               digest, the peak memory.
 
-Then a `kernels` line with every kernel's numbers, the card's name and power
-limit as nvidia-smi reports them, and last `{"ok": true, "device": ...}`.
+Then a `script` line with the whole run's seconds, a `kernels` line with
+every kernel's numbers, the card's name and power limit as nvidia-smi
+reports them, and last `{"ok": true, "device": ...}`.
 
     python3 chip_smoke.py --turn LABEL
 
@@ -202,6 +229,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import re
@@ -271,6 +299,25 @@ SPEC_RUNS = (("self", 1), ("shrink", 1), ("shrink", 2), ("early_exit", 2))
 # prefill bucket (the cross K/V is built at prefill), 32 tokens each
 ENCODER_ARCH = "whisper-small"
 ENCODER_LENS = "8,16,24,32,48,64,100,128"
+# the encoder_forms phase's weight forms and the encoder_spec phase's drafters
+ENCODER_FORMS = ("int4_palette", "sparse")
+ENCODER_DRAFTS = ("self", "shrink")
+
+# the archs phase: each config of this slice served through the CLI's entry
+# point (the serve phase's 8 lanes and prompts, one round), with the layers
+# kept where the whole model does not fit the card beside the serve's graphs
+# (None: all of them) and why
+ARCH_RUNS = (("ane-paper", None), ("phi4-mini-3.8b", None), ("granite-8b", None),
+             ("command-r-35b", 8), ("chameleon-34b", 8), ("dbrx-132b", 4))
+ARCH_CUTS = {
+    "command-r-35b": "40 layers are ~60.6 GB bf16, and every captured program holds "
+                     "its own 8.4 GB fp32 copy of the tied 256,000 x 8,192 head",
+    "chameleon-34b": "48 layers are ~68.6 GB bf16",
+    "dbrx-132b": "~6.5 GB of bf16 weights a layer: 16 expert banks, each read every step",
+}
+# the rows phase beyond tinyllama: per-row arithmetic this slice adds (the
+# 128-wide heads, QK-norm, the MoE router and combine)
+ROWS_ARCHS = ("granite-8b", "chameleon-34b", "dbrx-132b")
 # flash cases the registry rows leave off, at every head dim the kernel
 # takes: (label, (B, H, KVH, Sq, Skv), masks); Sq <= 16 runs the bf16 /
 # fp16 short-query (split-KV) path
@@ -337,12 +384,17 @@ PLAN_ROWS = (8, 40, 80, 512)
 TIMING_REPS = 20
 # traced serve rounds the profile phase may take to get one whose trace
 # holds every kernel record (CUPTI drops a few at random)
-TRACE_ATTEMPTS = 5
+TRACE_ATTEMPTS = 10
 L2_FLUSH_BYTES = 256 << 20               # > the H100's 50 MB L2
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; `t_s`: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T0, 3)}), flush=True)
 
 
 def ptxas_report(log: str) -> list[dict]:
@@ -798,12 +850,13 @@ def serve_lens(prompt_lens: str = SERVE_LENS) -> list[int]:
     return [int(x) + SERVE_GEN // 2 for x in prompt_lens.split(",")]
 
 
-def decode_inputs(rng, b: int, s: int, h: int, kvh: int, d: int, lens) -> dict:
-    """decode_attention's operands, bf16 on the card: lane i holds positions
-    0..lens[i]-1 in its first slots (the rest empty, -1) and decodes at
-    lens[i] - 1."""
+def decode_inputs(rng, b: int, s: int, h: int, kvh: int, d: int, lens,
+                  dtype=torch.bfloat16) -> dict:
+    """decode_attention's operands on the card (bf16 unless `dtype`): lane i
+    holds positions 0..lens[i]-1 in its first slots (the rest empty, -1) and
+    decodes at lens[i] - 1."""
     def normal(shape):
-        return torch.from_numpy(rng.normal(size=shape)).to(device="cuda", dtype=torch.bfloat16)
+        return torch.from_numpy(rng.normal(size=shape)).to(device="cuda", dtype=dtype)
 
     lens = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device="cuda")
     pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
@@ -866,19 +919,20 @@ def check_decode_rows(rng, failures: list) -> None:
     """The row contract under splits: decode at the serve phase's cache
     length and at 4,096 slots (9 and 64 splits at bk 64), 16 lanes of random
     lengths; 8 lanes must equal the first 8 of the 16 bit for bit, and the
-    same call twice the same bits, in bf16 at tinyllama's heads and in fp32
-    at whisper's (12/12, d 64)."""
+    same call twice the same bits, in bf16 at tinyllama's heads, in fp32 at
+    whisper's (12/12, d 64) and in fp16 at ane-paper's (8/8, d 128)."""
     for s in DECODE_LENS:
-        for dtype, (h, kvh) in ((torch.bfloat16, (32, 4)), (torch.float32, (12, 12))):
-            i = decode_inputs(rng, 16, s, h, kvh, 64, rng.integers(1, s + 1, size=16))
-            i = {k: v.to(dtype) if v.is_floating_point() else v for k, v in i.items()}
+        for dtype, (h, kvh), d in ((torch.bfloat16, (32, 4), 64),
+                                   (torch.float32, (12, 12), 64),
+                                   (torch.float16, (8, 8), 128)):
+            i = decode_inputs(rng, 16, s, h, kvh, d, rng.integers(1, s + 1, size=16), dtype)
             full = decode_attention(*(i[k] for k in DECODE_NAMES))
             eight = decode_attention(*(i[k][:8] for k in DECODE_NAMES))
             checks = {"8 of 16 lanes": (eight, full[:8]),
                       "rerun": (decode_attention(*(i[k] for k in DECODE_NAMES)), full)}
             for label, (a, b) in checks.items():
                 same = torch.equal(a, b)
-                emit("decode_rows", check=label, s=s, heads=h, kv_heads=kvh,
+                emit("decode_rows", check=label, s=s, heads=h, kv_heads=kvh, d=d,
                      dtype=dtype_name(dtype), plan=da.decode_plan(s, da.DEFAULT_CHUNK)._asdict(),
                      bit_identical=same)
                 if not same:
@@ -1297,6 +1351,17 @@ def check_kernels(cfg, timer) -> dict:
         headline.setdefault(name, rec)
         if label.startswith("gate_up M=8"):
             headline[name] = rec                  # decode-time projection
+    # ane-paper's decode in float16 (8 lanes, 8/8 heads, d 128, the serve
+    # phase's 544-slot cache and lengths), and the paged form on the same
+    # lanes in 16-slot pages: timed beside their plain versions and SDPA
+    ane = configs.get_config("ane-paper")
+    h_a, kv_a, d_a, nb = ane.n_heads, ane.n_kv_heads, ane.d_head, SERVE_MAX_LEN // 16
+    i = decode_inputs(rng, 8, SERVE_MAX_LEN, h_a, kv_a, d_a, serve_lens(), torch.float16)
+    check(dec, f"main ane-paper B=8 S={SERVE_MAX_LEN} H={h_a} KV={kv_a} d={d_a} fp16", i, True)
+    i = pg.make_inputs(registry.ShapeCase("ane", (8, h_a, kv_a, 8 * nb, 16, nb, d_a,
+                                                  SERVE_MAX_LEN)), torch.float16, rng, "cuda")
+    check(pg, f"main ane-paper B=8 pages={nb}x16 H={h_a} KV={kv_a} d={d_a} fp16", i, True)
+    check_paged_bits(i, "ane-paper fp16", torch.float16, failures)
     check_exact_bits(rng, failures)
     time_pool_plans(rng, timer)
     time_floor(timer, rng)
@@ -1494,7 +1559,10 @@ def main(argv: list[str]) -> int:
     headline = check_kernels(cfg, timer)
     check_parity()
     check_parity_encdec()
+    check_parity_archs()
     check_rows(cfg)
+    for name in ROWS_ARCHS:
+        check_rows(*arch_config(name))
     check_sampling()
     check_graphs(cfg)
     # each kernel's launches come from the serve run whose path uses it
@@ -1518,6 +1586,11 @@ def main(argv: list[str]) -> int:
     encoder_launches, encoder_tokens = serve_encoder(timer)
     launches.update(encoder_launches)
     serve_encoder_slo(encoder_tokens)
+    serve_encoder_forms()
+    serve_encoder_spec(encoder_tokens)
+    for name, _ in ARCH_RUNS:
+        serve_arch(name)
+    emit("script", seconds=time.perf_counter() - T0)
 
     kernels = []
     for spec in registry.all_specs():
@@ -1537,45 +1610,60 @@ def main(argv: list[str]) -> int:
     return 0
 
 
+def parity_case(cfg, form: str, kernel: str) -> None:
+    """One smoke model, same weights, on the card (kernels) and on the CPU
+    (plain versions), packed once on the CPU where `form` says so: prefill
+    and three teacher-forced decode steps must agree at 4x the tolerance of
+    `kernel`, the row that streams the weights; the card routes every
+    matmul through `kernel`."""
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device="cuda")
+    params_cpu = cpu.init(torch.Generator().manual_seed(0))
+    if form != "fp16":
+        params_cpu = compress_model_params(params_cpu, form)
+    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+    rtol, atol = (4 * x for x in registry.get(kernel).tol(gpu.dtype))
+    tokens = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens})
+    c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda()})
+    errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
+    c_cpu = merge_prefill_caches(cpu.init_cache(2, 32), c_cpu)
+    c_gpu = merge_prefill_caches(gpu.init_cache(2, 32), c_gpu)
+    tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+    for i in range(3):
+        pos = torch.full((2,), 24 + i, dtype=torch.int32)
+        c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
+        c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
+        if not bool(torch.isfinite(d_gpu).all()):
+            raise AssertionError(f"{cfg.name} {form} {cfg.dtype}: non-finite decode logits")
+        errs.append(float((d_gpu.cpu() - d_cpu).abs().max()))
+        torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
+        tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+    routes = {k for k, _ in gpu.dispatcher.census()}
+    if routes != {kernel, "flash", "decode_attention"}:
+        raise AssertionError(f"{cfg.name} {form} {cfg.dtype}: card routes {routes}")
+    emit("parity", config=cfg.name, weight_form=form, dtype=cfg.dtype,
+         max_abs_err=max(errs), tol=[rtol, atol], ok=True)
+
+
 def check_parity() -> None:
-    """The smoke model, same weights, on the card (kernels) and on the CPU
-    (plain versions), dense and in both packed forms (packed once, on the
-    CPU, so both sides run the same payload): prefill and three
-    teacher-forced decode steps must agree at 4x the tolerance of the row
-    that streams the weights."""
+    """tinyllama-1.1b smoke, dense and in both packed forms, fp32 and
+    bf16 (`parity_case`)."""
     for form, kernel in FORM_KERNEL.items():
         for dtype in ("float32", "bfloat16"):
-            cfg = dataclasses.replace(configs.get_smoke("tinyllama-1.1b"), dtype=dtype)
-            cpu = build_model(cfg, device="cpu")
-            gpu = build_model(cfg, device="cuda")
-            params_cpu = cpu.init(torch.Generator().manual_seed(0))
-            if form != "fp16":
-                params_cpu = compress_model_params(params_cpu, form)
-            params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
-            rtol, atol = (4 * x for x in registry.get(kernel).tol(gpu.dtype))
-            tokens = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
-                                   generator=torch.Generator().manual_seed(1))
-            c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens})
-            c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda()})
-            errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
-            torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
-            c_cpu = merge_prefill_caches(cpu.init_cache(2, 32), c_cpu)
-            c_gpu = merge_prefill_caches(gpu.init_cache(2, 32), c_gpu)
-            tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
-            for i in range(3):
-                pos = torch.full((2,), 24 + i, dtype=torch.int32)
-                c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
-                c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
-                if not bool(torch.isfinite(d_gpu).all()):
-                    raise AssertionError(f"{cfg.name} {form} {dtype}: non-finite decode logits")
-                errs.append(float((d_gpu.cpu() - d_cpu).abs().max()))
-                torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
-                tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
-            routes = {k for k, _ in gpu.dispatcher.census()}
-            if routes != {kernel, "flash", "decode_attention"}:
-                raise AssertionError(f"{form} {dtype}: card routes {routes}")
-            emit("parity", config=cfg.name, weight_form=form, dtype=dtype,
-                 max_abs_err=max(errs), tol=[rtol, atol], ok=True)
+            parity_case(dataclasses.replace(configs.get_smoke("tinyllama-1.1b"), dtype=dtype),
+                        form, kernel)
+
+
+def check_parity_archs() -> None:
+    """Every arch this slice adds, at smoke size (`parity_case`): in fp32
+    and in its own dtype (bf16; float16 for ane-paper)."""
+    for name, _ in ARCH_RUNS:
+        cfg = configs.get_smoke(name)
+        for dtype in ("float32", configs.get_config(name).dtype):
+            parity_case(dataclasses.replace(cfg, dtype=dtype), "fp16", "anemm")
 
 
 def graph_counts(tag: str, out: dict, named: tuple[str, ...]) -> dict:
@@ -1819,10 +1907,16 @@ def serve_argv(cfg, rounds: int, form: str, schedule: str = "continuous") -> lis
             "--weight-form", form]
 
 
-def check_rows(cfg) -> None:
-    """Decode steps of full tinyllama-1.1b on 8 lanes, and on the same 8
+def check_rows(cfg, reduced: dict | None = None) -> None:
+    """Decode steps of a full-width model on 8 lanes, and on the same 8
     lanes twice over: the first 8 rows' logits must agree bit for bit, or a
-    16-row tree verify window could pick other tokens than 8-row decode."""
+    16-row tree verify window could pick other tokens than 8-row decode.
+    Run for full tinyllama-1.1b and for the archs whose arithmetic adds
+    something per row: granite-8b's 4,096-wide rows, chameleon-34b's
+    QK-norm at 8,192 and dbrx-132b's router and combine at 6,144 (the norms
+    of rows wider than 2,048 reduce as a pairwise tree; `reduced`: the depth
+    cut of a config that does not fit whole)."""
+    release_memory()
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (8, 4), dtype=torch.int32,
@@ -1839,11 +1933,20 @@ def check_rows(cfg) -> None:
 
     a, b = run(1), run(2)
     err = float((a - b).abs().max())
-    emit("rows", config=cfg.name, steps=tokens.shape[1], rows=[8, 16], max_abs_err=err,
-         ok=err == 0.0)
+    emit("rows", config=cfg.name, n_layers=cfg.n_layers, reduced=reduced,
+         steps=tokens.shape[1], rows=[8, 16], max_abs_err=err, ok=err == 0.0)
     if err != 0.0:
-        raise AssertionError(f"decode logits at 16 rows differ from 8 rows by {err}")
+        raise AssertionError(f"{cfg.name}: decode logits at 16 rows differ from 8 rows by {err}")
     del model, params
+
+
+def release_memory() -> None:
+    """Drop what earlier phases left for the collector (engines, their
+    graphs and private pools) and return the allocator's cached blocks, so
+    a large model starts from an empty card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2317,12 +2420,12 @@ def step_counts(out: dict, decode_keys) -> tuple[int, int, int]:
 
 def check_serve_launches(tag: str, cfg, launches: dict, n_prefill: int, n_chunk: int,
                          n_decode: int) -> None:
-    """A dense decoder's serve: anemm once per matmul of every forward (7
-    per layer plus the head; a chunk is a forward), flash once per layer of
+    """A decoder's serve: anemm once per matmul of every forward
+    (`matmuls_per_forward`; a chunk is a forward), flash once per layer of
     every prefill, decode_attention once per layer of every decode step (a
     chunk attends in plain PyTorch); nothing else."""
     want = {k: 0 for k in launches}
-    want.update({"anemm": (7 * cfg.n_layers + 1) * (n_prefill + n_chunk + n_decode),
+    want.update({"anemm": matmuls_per_forward(cfg) * (n_prefill + n_chunk + n_decode),
                  "flash": cfg.n_layers * n_prefill,
                  "decode_attention": cfg.n_layers * n_decode})
     if launches != want:
@@ -2823,11 +2926,7 @@ def serve_encoder(timer) -> dict:
     n_prefill, n_decode = len(by_kind["prefill"]), len(by_kind["decode"])
     l_e, l_d = cfg.n_encoder_layers, cfg.n_layers
     want = {k: 0 for k in launches}
-    want.update({"conv2d": 2 * n_prefill,
-                 "anemm": (6 * l_e + 2 * l_d + 8 * l_d + 1) * n_prefill
-                 + (8 * l_d + 1) * n_decode,
-                 "flash": (l_e + 2 * l_d) * n_prefill + l_d * n_decode,
-                 "decode_attention": l_d * n_decode})
+    want.update(encdec_launches(cfg, "anemm", n_prefill, n_decode))
     if launches != want:
         raise AssertionError(f"encoder serve launches {launches}, expected {want}")
     dispatches = {k: {"n": len(w), "wall_s": sum(w), "median_ms": statistics.median(w) * 1e3}
@@ -2894,6 +2993,207 @@ def serve_encoder(timer) -> dict:
     return {"conv2d": launches["conv2d"], "act_lut": counts[False]["act_lut"],
             "avg_pool": pool_launches["avg_pool"], "max_pool": pool_launches["max_pool"]}, \
         tokens
+
+
+# ---------------------------------------------------------------------------
+# the encoder_forms and encoder_spec phases: whisper-small packed and
+# speculative
+# ---------------------------------------------------------------------------
+
+
+def encdec_launches(cfg, matmul: str, n_prefill: int, n_decode: int) -> dict:
+    """An encoder-decoder's launches: per prefill the stem's 2 conv2d, 6
+    matmuls an encoder layer, 2 (cross K/V) + 8 a decoder layer and the
+    head, one flash an encoder layer and two a decoder layer; per decode
+    step 8 matmuls a decoder layer and the head, one flash (cross) and one
+    decode_attention (self) a decoder layer. `matmul`: the kernel of every
+    matmul (`anemm`, or a packed form's)."""
+    l_e, l_d = cfg.n_encoder_layers, cfg.n_layers
+    return {"conv2d": 2 * n_prefill,
+            matmul: (6 * l_e + 10 * l_d + 1) * n_prefill + (8 * l_d + 1) * n_decode,
+            "flash": (l_e + 2 * l_d) * n_prefill + l_d * n_decode,
+            "decode_attention": l_d * n_decode}
+
+
+def serve_encoder_forms() -> None:
+    """Full whisper-small under each packed form (packed on the card after
+    init) through the serve CLI's entry point: the encoder's attention, the
+    decoder's self- and cross-attention, the MLPs and the head stream
+    through the form's kernel (17 packed leaves), the conv stem stays dense;
+    every route cuda, no anemm, each kernel's launches as the run's
+    admissions and decode steps imply; captures = misses."""
+    cfg = configs.get_config(ENCODER_ARCH)
+    for form in ENCODER_FORMS:
+        kernel = FORM_KERNEL[form]
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        out = serve.run(encoder_argv(1) + ["--weight-form", form])
+        launches = native.launch_counts()
+        graphs = graph_counts(f"encoder {form} serve", out, NAMED_RECORDS)
+        tokens = out["tokens"]
+        if tokens.shape != (len(ENCODER_LENS.split(",")), SERVE_GEN) or \
+                tokens.min() < 0 or tokens.max() >= cfg.vocab:
+            raise AssertionError(f"encoder {form} tokens: shape {tokens.shape}")
+        routes = set(out["routes"])
+        if routes != {(k, "cuda") for k in (kernel, "flash", "decode_attention", "conv2d")}:
+            raise AssertionError(f"encoder {form} routes {out['routes']}")
+        if out["weight_form_census"] != {form: 17}:
+            raise AssertionError(f"encoder {form} packed leaves {out['weight_form_census']}")
+        recs = out["records"]
+        decode_key = recs[-1].key
+        n_decode = sum(r.key == decode_key for r in recs)
+        n_prefill = sum(r.key not in NAMED_RECORDS and r.key != decode_key for r in recs)
+        want = {k: 0 for k in launches}
+        want.update(encdec_launches(cfg, kernel, n_prefill, n_decode))
+        if launches != want:
+            raise AssertionError(f"encoder {form} launches {launches}, expected {want}")
+        steps = [r.wall_s for r in recs if r.key == decode_key]
+        emit("encoder_forms", config=cfg.name, dtype=cfg.dtype, weight_form=form,
+             lanes=len(tokens), prompt_lens=ENCODER_LENS, gen=SERVE_GEN, rounds=1,
+             tokens_sha256=digest(tokens), tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+             pack_s=out["pack_s"], weight_form_census=out["weight_form_census"],
+             prefills=n_prefill, decode_steps=n_decode,
+             decode_median_ms=statistics.median(steps) * 1e3,
+             routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+             launches=launches, **graphs,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del out
+
+
+def serve_encoder_spec(want_tokens: np.ndarray) -> None:
+    """Full whisper-small through `--schedule spec` with each drafter of
+    ENCODER_DRAFTS (`shrink`: one encoder and one decoder layer of the
+    target's widths, its own stem and encoder on each request's frames):
+    the streams equal the continuous run's, every route cuda, the self
+    drafter accepts everything, every window makes one verify and (if it
+    drafted) one draft dispatch, and each kernel's launches are the two
+    models' admissions and decode forwards plus one specdec a window."""
+    cfg = configs.get_config(ENCODER_ARCH)
+    for draft in ENCODER_DRAFTS:
+        tag = f"encoder spec {draft}"
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        out = serve.run(encoder_argv(1, "spec") + ["--draft", draft,
+                                                   "--draft-depth", str(SPEC_DEPTH)])
+        launches = native.launch_counts()
+        graphs = graph_counts(tag, out, ("spec_admit_slot", "spec_reset_slot"))
+        if not np.array_equal(out["tokens"], want_tokens):
+            bad = int((out["tokens"] != want_tokens).any(axis=1).sum())
+            raise AssertionError(f"{tag}: {bad} of {len(want_tokens)} streams differ from the "
+                                 "continuous run's")
+        if {b for _, b in out["routes"]} != {"cuda"}:
+            raise AssertionError(f"{tag} routes {out['routes']}: every route must be cuda")
+        if draft == "self" and out["acceptance_rate"] != 1.0:
+            raise AssertionError(f"{tag}: acceptance {out['acceptance_rate']}, want 1.0")
+        n_windows = out["n_windows"]
+        if out["verify_dispatches"] != n_windows or \
+                out["draft_dispatches"] != n_windows - out["bonus_windows"]:
+            raise AssertionError(f"{tag}: {n_windows} windows, {out['draft_dispatches']} "
+                                 f"draft and {out['verify_dispatches']} verify dispatches")
+        dcfg = out["engine"].drafter.cfg
+        n_prefill = sum(r.key == "spec_admit_slot" for r in out["records"])
+        t_dec = out["catchup_steps"] + out["verify_steps"]
+        d_dec = out["catchup_steps"] + out["draft_steps"]
+        want = {k: 0 for k in launches}
+        for part in (encdec_launches(cfg, "anemm", n_prefill, t_dec),
+                     encdec_launches(dcfg, "anemm", n_prefill, d_dec)):
+            for k, n in part.items():
+                want[k] += n
+        want["specdec"] = out["windows_by_kind"].get("chain", 0)
+        if launches != want:
+            raise AssertionError(f"{tag} launches {launches}, expected {want}")
+        emit("encoder_spec", config=cfg.name, dtype=cfg.dtype, drafter=draft,
+             drafter_layers=[dcfg.n_encoder_layers, dcfg.n_layers], draft_depth=SPEC_DEPTH,
+             lanes=len(want_tokens), prompt_lens=ENCODER_LENS, gen=SERVE_GEN, rounds=1,
+             tokens_match_continuous=True, tokens_sha256=digest(out["tokens"]),
+             tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+             acceptance_rate=out["acceptance_rate"], proposed=out["proposed"],
+             accepted=out["accepted"], n_windows=n_windows,
+             bonus_windows=out["bonus_windows"], draft_dispatches=out["draft_dispatches"],
+             verify_dispatches=out["verify_dispatches"], prefills=n_prefill,
+             catchup_steps=out["catchup_steps"], draft_steps=out["draft_steps"],
+             verify_steps=out["verify_steps"], n_dispatches=out["n_dispatches"],
+             routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+             launches=launches, **graphs,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del out
+
+
+# ---------------------------------------------------------------------------
+# the archs phase: every config of this slice served on the card
+# ---------------------------------------------------------------------------
+
+
+def arch_config(name: str) -> tuple:
+    """(config, reduced): the published config, or its depth cut from
+    ARCH_RUNS with the cut and its reason (None when whole)."""
+    full = configs.get_config(name)
+    layers = dict(ARCH_RUNS)[name]
+    if layers is None:
+        return full, None
+    return dataclasses.replace(full, n_layers=layers), \
+        {"n_layers": layers, "of": full.n_layers, "why": ARCH_CUTS[name]}
+
+
+def matmuls_per_forward(cfg) -> int:
+    """The routed matmuls of one decoder forward: 4 attention projections a
+    layer, then 3 for a dense MLP or 3 per expert bank (and 3 for a shared
+    MLP) for an MoE layer, and the head. The MoE router is not one: it runs
+    outside any kernel, as in the reference."""
+    def mlp(i):
+        if not cfg.layer_is_moe(i):
+            return 3
+        return 3 * cfg.n_experts + 3 * bool(cfg.n_shared_experts)
+    return sum(4 + mlp(i) for i in range(cfg.n_layers)) + 1
+
+
+def serve_arch(name: str) -> None:
+    """One config of ARCH_RUNS (random weights from the seed, its own dtype)
+    through the serve CLI's entry point: the continuous schedule, 8 lanes,
+    the serve phase's prompts, 32 tokens, one round. Checks: tokens in the
+    vocab, every route cuda, captures = misses, and each kernel's launches:
+    `anemm` `matmuls_per_forward` times per prefill and decode step, flash
+    once a layer a prefill, decode_attention once a layer a step, nothing
+    else (`check_serve_launches`). Emits tok/s, the decode step's median,
+    the digest and the peak memory. No profiled round: a traced round of
+    these models holds hundreds of thousands of device events, the tracer
+    dropped records in every attempt for some of them, and the traced
+    rounds took most of the script's time."""
+    cfg, reduced = arch_config(name)
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    out = serve.run(serve_argv(cfg, 1, "fp16"), cfg=cfg)
+    launches = native.launch_counts()
+    graphs = graph_counts(f"{name} serve", out, NAMED_RECORDS)
+    tokens = out["tokens"]
+    n_lanes = len(SERVE_LENS.split(","))
+    if tokens.shape != (n_lanes, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"{name} serve tokens: shape {tokens.shape}, range "
+                             f"[{tokens.min()}, {tokens.max()}]")
+    if set(out["routes"]) != {(k, "cuda") for k in ("anemm", "flash", "decode_attention")}:
+        raise AssertionError(f"{name} serve routes {out['routes']}: every route must be cuda")
+    recs = out["records"]
+    decode_key = recs[-1].key
+    n_decode = sum(r.key == decode_key for r in recs)
+    n_prefill = sum(r.key not in NAMED_RECORDS and r.key != decode_key for r in recs)
+    check_serve_launches(f"{name} serve", cfg, launches, n_prefill, 0, n_decode)
+    steps = [r.wall_s for r in recs if r.key == decode_key]
+    emit("arch_serve", config=name, dtype=cfg.dtype, n_layers=cfg.n_layers, reduced=reduced,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+         vocab=cfg.vocab, experts=[cfg.n_experts, cfg.experts_per_token],
+         lanes=n_lanes, prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=1,
+         tokens_sha256=digest(tokens), tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
+         prefills=n_prefill, decode_steps=n_decode,
+         decode_median_ms=statistics.median(steps) * 1e3,
+         matmuls_per_forward=matmuls_per_forward(cfg), n_dispatches=out["n_dispatches"],
+         cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
+         routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+         launches=launches, **graphs,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del out
 
 
 if __name__ == "__main__":

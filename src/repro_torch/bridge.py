@@ -9,6 +9,11 @@ reference's tree layout, e.g. for tinyllama
      "layers": [{"sub0": {"ln1", "ln2", "mix": {"wq", "wk", "wv", "wo"},
                           "mlp": {"wg", "wu", "wd"}}}]}
 
+and for the other archs the same with QK-norm's fp32 `mix/q_scale` and
+`mix/k_scale` (chameleon), or `moe: {"router", "wg", "wu", "wd"}` (and an
+optional `shared` MLP) in place of `mlp` (dbrx: the fp32 router, the
+expert banks stacked (layers, E, ...)); whisper's `encdec` tree likewise.
+
 bfloat16 leaves arrive with numpy's extension dtype named "bfloat16"; they
 are reinterpreted bit for bit, so no value changes on the way in. A shrink
 drafter's params (the reference `Drafter.params`, a one-layer tree of the
@@ -19,7 +24,8 @@ A packed weight arrives as any object with `form` (an enum with `.value`,
 or its string), `contract_shape`, `out_shape`, `dtype_name` and a `payload`
 dict of numpy arrays — the reference's `DispatchedWeight` after
 `jax.tree.map(np.asarray, ...)` has that shape — and becomes the port's
-`DispatchedWeight` with the same payload, bit for bit.
+`DispatchedWeight` with the same payload, bit for bit, stack dims (the
+layer axis, an expert bank's expert axis) leading as they came.
 """
 
 from __future__ import annotations

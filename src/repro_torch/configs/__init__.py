@@ -2,21 +2,32 @@
 published config, `get_smoke(name)` the reduced same-family config the CPU
 tests instantiate (after `src/repro/configs/__init__.py`).
 
-Only the architectures the port serves are registered: tinyllama-1.1b and
-whisper-small. The others join as their model families are ported.
+Registered: the architectures the port serves — the dense GQA decoders
+(tinyllama-1.1b, granite-8b, phi4-mini-3.8b, command-r-35b, chameleon-34b
+with QK-norm), the one-device MoE (dbrx-132b) and the encoder-decoder
+(whisper-small) — and, outside `ARCH_NAMES` as in the reference, the
+paper's own workload config `ane-paper` (float16). The sliding-window,
+SSM and MLA families join as they are ported.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import tinyllama_1_1b, whisper_small
+from repro_torch.configs import (ane_paper, chameleon_34b, command_r_35b, dbrx_132b,
+                                 granite_8b, phi4_mini_3_8b, tinyllama_1_1b, whisper_small)
 from repro_torch.configs.base import ModelConfig, smoke
 
 _MODULES = {
+    "chameleon-34b": chameleon_34b,
+    "granite-8b": granite_8b,
+    "phi4-mini-3.8b": phi4_mini_3_8b,
     "tinyllama-1.1b": tinyllama_1_1b,
+    "command-r-35b": command_r_35b,
+    "dbrx-132b": dbrx_132b,
     "whisper-small": whisper_small,
+    "ane-paper": ane_paper,
 }
 
-ARCH_NAMES = list(_MODULES)
+ARCH_NAMES = [n for n in _MODULES if n != "ane-paper"]
 
 
 def get_config(name: str) -> ModelConfig:

@@ -206,6 +206,10 @@ class GraphProgram:
         cargs = _rebuild(args, static)
         device = next(t.device for t in leaves if isinstance(t, torch.Tensor))
         t0 = time.perf_counter()
+        # the capture allocates from its own private pool, which cannot take
+        # the blocks the general pool caches (the eager run's temporaries,
+        # e.g. a widened fp32 head): return those to CUDA first
+        torch.cuda.empty_cache()
         # a garbage collection during the capture could destroy another
         # program's graph, a CUDA call the capture forbids (it invalidates it)
         collecting = gc.isenabled()

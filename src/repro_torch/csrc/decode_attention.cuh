@@ -23,7 +23,7 @@
 //     each, none empty, from (S, bk) alone: never from B, the heads or the
 //     card, so a lane's bits do not change with how many lanes run beside
 //     it. One block owns one (lane, kv head, split) and the query heads of
-//     the group (bf16: 16 of them a row tile) share every K/V row it stages.
+//     the group (16-bit: 16 of them a row tile) share every K/V row it stages.
 //   * Loads. The split's slots stream through a ring of stages, K and V rows
 //     of the kv head by 16-byte cp.async in the input dtype (rows padded by
 //     16 bytes, so the 8 rows of one shared-memory phase sit on distinct
@@ -31,14 +31,17 @@
 //     may come from several chunks (pages). Values become fp32 in registers,
 //     not in shared memory: at most 144 KB at d 256 (bf16, two stages), 85
 //     KB in fp32, against 165 KB of fp32 staging before.
-//   * bf16: tensor cores (`decode_split_tc`). The group's query heads are
+//   * bf16 and fp16: tensor cores (`decode_split_tc`, templated on the
+//     16-bit type: mma.sync .bf16 or .f16). The group's query heads are
 //     the 16 rows of an mma.sync.m16n8k16 tile (padded with zero rows; a
 //     group of 32 takes two row tiles, each its own block), each warp takes
 //     16 slots of a 64-slot stage: S = Q·Kᵀ from ldmatrix fragments, the
 //     masks from the staged positions, an online softmax in the
 //     accumulator's layout (exp2 of log2-scaled scores), O += P·V with P
-//     rounded once to bf16 (as flash_attention's tiles do: one relative
-//     rounding of at most 2^-8 a weight, inside the registry's 3e-2). At the
+//     rounded once to the input type (as flash_attention's tiles do: one
+//     relative rounding of at most 2^-8 a weight in bf16, 2^-11 in fp16,
+//     inside the registry's 3e-2; an fp16 weight below 2^-24, a score more
+//     than 24 log2 units under the running max, rounds to zero). At the
 //     end of the split the four warps merge in warp order.
 //   * fp32: CUDA cores (`decode_split_simt`). P = 128 / SR threads a slot
 //     (SR slots a stage, <= bk) split into row groups and, where the group
@@ -71,7 +74,7 @@
 // contract). Every slot of the cache is read: skipping chunks that hold no
 // valid slot would put a read of the positions before the first K/V load.
 //
-// Head dims 16, 32, 64, 128 and 256; fp32 and bf16.
+// Head dims 16, 32, 64, 128 and 256; fp32, bf16 and fp16.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -420,7 +423,7 @@ __global__ void __launch_bounds__(DA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 and fp16: tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int TC_WARPS = 4, TC_THREADS = 32 * TC_WARPS;
@@ -435,7 +438,7 @@ struct Tc {
     return (split_len + TC_SR - 1) / TC_SR < TC_STAGES ? (split_len + TC_SR - 1) / TC_SR
                                                         : TC_STAGES;
   }
-  // Qs [16][PITCH], K and V rings [ns][TC_SR][PITCH] (bf16), positions
+  // Qs [16][PITCH], K and V rings [ns][TC_SR][PITCH] (16-bit), positions
   // [ns][TC_SR]; after the last stage the rings hold the warps' merge
   static constexpr int smem_bytes(int ns) {
     return (TC_ROWS + 2 * ns * TC_SR) * PITCH * 2 + ns * TC_SR * 4;
@@ -445,9 +448,20 @@ struct Tc {
                 "the merges fit in one stage of the rings");
 };
 
-// two fp32 values rounded once to bf16, packed (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two fp32 values rounded once to T (bf16 or fp16, to nearest even),
+// packed (lo in the low half)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -455,14 +469,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // + mt (query heads kh·g + 16·mt + [0, 16) of the group's g), split
 // blockIdx.y; a tile's n_split blocks are one cluster, as in
 // decode_split_simt. The chunk size bk only maps slots to rows: a stage may
-// span chunks.
-template <int D, typename Rows>
+// span chunks. T is bf16 or fp16: the mma's operand type and the one
+// rounding of P before P·V; scores, softmax state and merges are fp32.
+template <int D, typename T, typename Rows>
 __global__ void __launch_bounds__(TC_THREADS)
-    decode_split_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-                    const __nv_bfloat16* __restrict__ vc, const Rows rows,
-                    const int* __restrict__ cur, __nv_bfloat16* __restrict__ out, int H,
+    decode_split_tc(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                    const Rows rows, const int* __restrict__ cur, T* __restrict__ out, int H,
                     int KV, int window, float scale_log2, int split_len, int bk) {
-  using T = __nv_bfloat16;
   constexpr int P = Tc<D>::PITCH, KD = D / 16, ND = D / 8, CPR = D * 2 / 16;
   extern __shared__ __align__(16) unsigned char dt_smem[];
   const int g = H / KV, n_mt = (g + TC_ROWS - 1) / TC_ROWS;
@@ -576,7 +589,7 @@ __global__ void __launch_bounds__(TC_THREADS)
       l[r] *= corr[r];
     }
     // O += P·V: the two n-tiles' weights are one A fragment of P (16 slots),
-    // rounded once to bf16; B from V rows by ldmatrix.trans
+    // rounded once to T; B from V rows by ldmatrix.trans
     uint32_t a[4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
@@ -584,8 +597,8 @@ __global__ void __launch_bounds__(TC_THREADS)
       const float p2 = exp2_approx(sc[nt][2] - m[1]), p3 = exp2_approx(sc[nt][3] - m[1]);
       l[0] += p0 + p1;
       l[1] += p2 + p3;
-      a[2 * nt] = pack_bf16(p0, p1);
-      a[2 * nt + 1] = pack_bf16(p2, p3);
+      a[2 * nt] = pack2<T>(p0, p1);
+      a[2 * nt + 1] = pack2<T>(p2, p3);
     }
     const uint32_t va = smem_addr(Vt + (lane % 8 + ((lane / 8) % 2) * 8) * P + (lane / 16) * 8);
 #pragma unroll
@@ -712,26 +725,28 @@ cudaError_t launch_f32(const Launch<Rows>& a) {
                           a.split_len);
 }
 
-template <int D, typename Rows>
-cudaError_t launch_bf16(const Launch<Rows>& a, int bk) {
-  using T = __nv_bfloat16;
+template <int D, typename T, typename Rows>
+cudaError_t launch_tc(const Launch<Rows>& a, int bk) {
   static bool ready[kMaxDevices] = {};
-  cudaError_t err = allow_dynamic_smem(decode_split_tc<D, Rows>,
+  cudaError_t err = allow_dynamic_smem(decode_split_tc<D, T, Rows>,
                                        Tc<D>::smem_bytes(TC_STAGES), ready);
   if (err != cudaSuccess) return err;
   const int n_mt = (a.H / a.KV + TC_ROWS - 1) / TC_ROWS;
   const int smem = Tc<D>::smem_bytes(Tc<D>::stages(a.split_len));
-  return launch_clustered(decode_split_tc<D, Rows>, a.B * a.KV * n_mt, a.n_split, TC_THREADS,
-                          smem, a.s, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                          static_cast<const T*>(a.v), a.rows, a.cur, static_cast<T*>(a.out),
-                          a.H, a.KV, a.window, a.scale_log2, a.split_len, bk);
+  return launch_clustered(decode_split_tc<D, T, Rows>, a.B * a.KV * n_mt, a.n_split,
+                          TC_THREADS, smem, a.s, static_cast<const T*>(a.q),
+                          static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.rows,
+                          a.cur, static_cast<T*>(a.out), a.H, a.KV, a.window, a.scale_log2,
+                          a.split_len, bk);
 }
 
-// fp32 and bf16 (the registry rows' surface); chunks of 8, 16 or 64 slots
+// fp32, bf16 and fp16 (the registry rows' surface); chunks of 8, 16 or 64
+// slots
 template <int D, typename Rows>
 cudaError_t launch_d(int dtype, int BK, const Launch<Rows>& a) {
   if (BK != 8 && BK != 16 && BK != DA_BKMAX) return cudaErrorInvalidValue;
-  if (dtype == kBF16) return launch_bf16<D>(a, BK);
+  if (dtype == kBF16) return launch_tc<D, __nv_bfloat16>(a, BK);
+  if (dtype == kF16) return launch_tc<D, __half>(a, BK);
   if (dtype != kF32) return cudaErrorInvalidValue;
   switch (BK) {
     case 8: return launch_f32<D, 8>(a);

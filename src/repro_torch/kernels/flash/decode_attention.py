@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import native
 
 NEG_INF = -1e30
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32      # query heads per kv head the kernel stages at once
 CHUNKS = (8, 16, 64)   # cache slots of a chunk (a page of the paged form)

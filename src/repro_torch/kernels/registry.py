@@ -3,7 +3,10 @@
 After `src/repro/kernels/registry.py`. Each row mirrors the reference's
 `KernelSpec`: the same name, the same shape classes (names, dims and `edge`
 flags), the same dtypes and the same tolerance function, so a test can hold
-one registry against the other. A row also names its CUDA source and the
+one registry against the other. One extension: `decode_attention` and
+`paged_decode_attention` add float16 after the reference's dtypes (the
+reference serves an fp16 decode through its plain jnp version; the port
+has no plain route on the card). A row also names its CUDA source and the
 Pallas kernel it replaces, and counts the work its inputs need (operations
 and bytes), from which `chip_smoke.py` computes each kernel's bound.
 
@@ -300,7 +303,10 @@ def _register_decode() -> None:
 
     register(KernelSpec(
         name="decode_attention",
-        dtypes=(torch.float32, torch.bfloat16),
+        # float16 extends the reference's surface: its dispatcher sends an
+        # fp16 decode to the plain jnp version (reference core/dispatch.py
+        # :456), and the port has no plain route on the card
+        dtypes=(torch.float32, torch.bfloat16, torch.float16),
         cases=(
             # dims = (B, H, KVH, S, d, written_length)
             ShapeCase("gqa", (2, 8, 2, 256, 64, 200)),
@@ -380,7 +386,7 @@ def _register_paged_decode() -> None:
     names = ("q", "k_arena", "v_arena", "pos_arena", "block_tables", "current")
     register(KernelSpec(
         name="paged_decode_attention",
-        dtypes=(torch.float32, torch.bfloat16),
+        dtypes=(torch.float32, torch.bfloat16, torch.float16),   # fp16: as decode_attention
         cases=(
             # dims = (B, H, KVH, N arena blocks, bs, nb pages/lane, d, length)
             ShapeCase("gqa", (2, 8, 2, 16, 8, 6, 64, 41)),

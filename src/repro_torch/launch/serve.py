@@ -56,7 +56,15 @@ device that holds the logits. The engine is built from a `ServeConfig`
 
 `run(argv, prompts=...)` serves given rounds of prompts (a list of rounds,
 each a list of int32 token arrays) in place of the seeded draws: the
-library entry point for traffic whose requests share prefixes.
+library entry point for traffic whose requests share prefixes. `run(argv,
+cfg=...)` serves a given config in place of the registered one (its name
+must be that of `--arch`, or of its smoke config with `--smoke`): the
+library entry point for a depth-cut copy (`dataclasses.replace(cfg,
+n_layers=...)`), with no CLI flag.
+
+`--arch` takes every registered architecture and `ane-paper`, the paper's
+own float16 workload config (as the reference offers it); MoE configs
+(dbrx-132b) serve every expert on every token on one device.
 """
 
 from __future__ import annotations
@@ -83,9 +91,11 @@ from repro_torch.optim.compression import compress_model_params, weight_form_cen
 WEIGHT_FORMS = ("fp16", "int4_palette", "sparse")
 
 
-def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
+def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None,
+        cfg: configs.ModelConfig | None = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="tinyllama-1.1b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    choices=configs.ARCH_NAMES + ["ane-paper"])
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config of the CPU tests")
     ap.add_argument("--batch", type=int, default=4,
@@ -150,11 +160,17 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None) -> dict:
         ap.error("--device cuda: no CUDA device is available "
                  "(pass --device cpu to run the plain versions on the CPU)")
 
+    named = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+    if cfg is not None and cfg.name != named.name:
+        raise ValueError(f"cfg {cfg.name!r} is not --arch {args.arch!r} ({named.name!r})")
     build_s = 0.0
     if args.device == "cuda":
         build_s = native.build()["seconds"]
+        # the plain fp32 products left on the path (a prefill chunk's
+        # attention einsums) in full fp32, never TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(args.device)
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+    cfg = named if cfg is None else cfg
     dispatcher = KernelDispatcher()
     model = build_model(cfg, dispatcher, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))

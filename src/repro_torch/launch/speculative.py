@@ -228,10 +228,6 @@ class SpeculativeSchedule(ContinuousSchedule):
                  drafter: Drafter | None = None, draft_branches: int = 1,
                  max_in_flight: int = MAX_IN_FLIGHT,
                  stream: AsyncExecutionStream | None = None, **kw) -> None:
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                "SpeculativeSchedule: speculative decoding of an encoder-decoder "
-                "(per-request frames in the joint admission) is not ported yet")
         if kw.pop("prefix_cache", False):
             raise ValueError(
                 "SpeculativeSchedule does not route admissions through the paged KV "
@@ -476,7 +472,10 @@ class SpeculativeSchedule(ContinuousSchedule):
     # -- admission (drafter in lockstep, joint dispatches) -------------------
     def _admit(self, slot_idx: int, req, step: int) -> None:
         """`ContinuousSchedule._admit` with the drafter admitted in the SAME
-        dispatches: one joint prefill and one joint lane write (or reset)."""
+        dispatches: one joint prefill and one joint lane write (or reset).
+        An encoder-decoder's joint prefill carries the request's frames into
+        both models: the drafter runs its own stem and encoder on them
+        (reference :696)."""
         slot = self.slots[slot_idx]
         L = req.prompt.size
         bucket = bucket_for(L, self.buckets)
@@ -487,7 +486,7 @@ class SpeculativeSchedule(ContinuousSchedule):
             self.caches, self.draft_caches = self.stream.execute_sync()[0]
             slot.next_pos, slot.next_tok = 0, int(req.prompt[0])
         else:
-            batch = {"tokens": self._tokens(req.prompt[None, :bucket])}
+            batch = self._prefill_batch(req.prompt[None, :bucket], req.frames)
             prefill, pkey = self.cache.compile(self._joint_prefill_fn, self.params,
                                                self.drafter.params, batch, per_call=(2,))
             self.stream.encode_operation(prefill, (self.params, self.drafter.params, batch),

@@ -1,7 +1,9 @@
 """GQA attention with a KV cache: prefill through flash, decode one token.
 
 After `src/repro/models/attention.py`, the non-MLA, no-window path:
-`init_kv_cache` (:268), `_qkv` (:285), `attention_forward` (:297),
+`init_attention` (:40, with QK-norm's `q_scale` / `k_scale` at :72),
+`init_kv_cache` (:268), `_qkv` (:285, QK-norm before RoPE),
+`attention_forward` (:297),
 `_write_prefill_cache` (:353), `_append_cache` (:367-403) and
 `_decode_attention` (:405-435) for one token a lane and for a prefill chunk
 of C tokens a lane, the forward of `chunked_attention` (:233),
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dispatched as dsp
-from repro_torch.models.layers import Params, apply_rope, normal
+from repro_torch.models.layers import Params, apply_rope, normal, rms_head_norm
 
 NEG_INF = -1e30
 
@@ -44,6 +46,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
         p["bk"] = torch.zeros(stack + (kv, dh), dtype=dtype, device=dev)
         p["bv"] = torch.zeros(stack + (kv, dh), dtype=dtype, device=dev)
         p["bo"] = torch.zeros(stack + (d,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_scale"] = torch.ones(stack + (dh,), dtype=torch.float32, device=gen.device)
+        p["k_scale"] = torch.ones(stack + (dh,), dtype=torch.float32, device=gen.device)
     return p
 
 
@@ -126,6 +131,9 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
     q = dsp.linear(x, p["wq"], bias=p.get("bq"))
     k = dsp.linear(x, p["wk"], bias=p.get("bk"))
     v = dsp.linear(x, p["wv"], bias=p.get("bv"))
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_scale"])
+        k = rms_head_norm(k, p["k_scale"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -226,7 +226,11 @@ def _matmul_dense(disp: KernelDispatcher, a2: torch.Tensor,
     from repro_torch.kernels.anemm.anemm import anemm
     from repro_torch.kernels.anemm.ref import anemm_ref
 
-    w2 = w2.to(a2.dtype)
+    # one copy at most: a tied head's transposed table widens to a
+    # contiguous fp32 weight directly, without a contiguous bf16 copy first
+    # (`to` aliases a same-dtype view whatever the memory format)
+    w2 = w2.to(a2.dtype, memory_format=torch.contiguous_format) \
+        if w2.dtype != a2.dtype else w2.contiguous()
     return route_and_run(disp, "anemm", a2, lambda: anemm(a2, w2),
                          lambda: anemm_ref(a2, w2))
 
@@ -253,7 +257,7 @@ def linear(x: torch.Tensor, w: torch.Tensor | DispatchedWeight, *, n_contract: i
         out2 = _matmul_packed(disp, a2, w)
         out_shape = w.out_shape
     else:
-        out2 = _matmul_dense(disp, a2, w.reshape(k, -1).contiguous())
+        out2 = _matmul_dense(disp, a2, w.reshape(k, -1))
         out_shape = tuple(w.shape[n_contract:])
     out = out2.reshape(x.shape[:x.ndim - n_contract] + out_shape)
     if bias is not None:

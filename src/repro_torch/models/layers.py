@@ -1,5 +1,5 @@
-"""Common layers: norms, RoPE, the MLPs, embeddings, the logits head and the
-encoder's sinusoidal positions.
+"""Common layers: norms (and QK-norm's per-head RMS norm), RoPE, the MLPs,
+embeddings, the logits head and the encoder's sinusoidal positions.
 
 After `src/repro/models/layers.py`. Parameters are plain dicts of tensors
 with the reference's names, shapes and dtypes; `init_*` draw from the same
@@ -43,17 +43,57 @@ def init_norm(cfg: ModelConfig, dim: int, device, stack: tuple[int, ...] = ()) -
     return p
 
 
+# Rows up to this width take a norm's mean in torch's one reduction over
+# the row: at tinyllama's 2048 it gives the same bits at 8 and 16 rows on
+# the H100 (the rows phase checks it every run), and the serve digests fix
+# its bits. torch sizes a reduction's block from the row count below 16
+# rows, so wider rows (granite's 4096 to command-r's 8192) measured other
+# bits at 8 rows than at 16 on the H100, and take the mean as a pairwise
+# tree.
+ONE_REDUCTION_MAX_WIDTH = 2048
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, kept as a dim of 1: a pairwise tree of
+    elementwise adds (the width zero-padded to a power of two, halves
+    added), so every row's bits are the same whatever the number of rows."""
+    d = x.shape[-1]
+    width = 1 << (d - 1).bit_length()
+    if width != d:
+        x = F.pad(x, (0, width - d))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x
+
+
+def row_mean(x32: torch.Tensor) -> torch.Tensor:
+    """A norm's fp32 mean over the last dim, kept as a dim of 1."""
+    if x32.shape[-1] <= ONE_REDUCTION_MAX_WIDTH:
+        return x32.mean(-1, keepdim=True)
+    return row_sum(x32) / x32.shape[-1]
+
+
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     if cfg.norm == "layernorm":
-        mu = x32.mean(-1, keepdim=True)
-        var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+        mu = row_mean(x32)
+        var = row_mean((x32 - mu) ** 2)
         y = (x32 - mu) * torch.rsqrt(var + eps)
         y = y * p["scale"] + p.get("bias", 0.0)
     else:  # rmsnorm
-        ms = (x32 * x32).mean(-1, keepdim=True)
+        ms = row_mean(x32 * x32)
         y = x32 * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm of QK-norm (chameleon's stability recipe; reference
+    :71): fp32 mean over the head dim, rsqrt, the fp32 scale, back to x's
+    dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps) * scale
     return y.to(x.dtype)
 
 

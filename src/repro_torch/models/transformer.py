@@ -1,7 +1,9 @@
 """Decoder stack: residual blocks, layer groups, stacked parameters and caches.
 
-After `src/repro/models/transformer.py`: `apply_layer` (:57) and the dense
-layer-group path of `init_stack` / `init_stack_cache` / `apply_stack`
+After `src/repro/models/transformer.py`: `init_layer` (:37) and
+`apply_layer` (:57) with their MoE branch (:50-51, :88-91), the runs of equal
+`layer_signature` (:107-133, so leading dense layers before MoE ones form a
+group of their own) and `init_stack` / `init_stack_cache` / `apply_stack`
 (:136-239). Parameters and caches keep the reference's stacked layout — a
 list of groups, each `{"sub0": {...}}` with a leading layer axis — so both
 compare leaf for leaf with the reference's trees. A Python loop over a
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import Params, apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.tree import tree_map
 
@@ -25,14 +28,12 @@ def layer_signature(cfg: ModelConfig, idx: int) -> tuple[str, bool]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders and the encoder-decoder so far;
-    refuse anything else loudly."""
+    """The port serves GQA decoders (dense, QK-norm, one-device MoE) and the
+    encoder-decoder so far; refuse anything else loudly."""
     unsupported = [name for name, on in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "encdec")),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "encdec")),
         ("block_pattern", bool(cfg.block_pattern)),
-        ("MoE", cfg.n_experts > 0),
         ("MLA", cfg.use_mla),
-        ("qk_norm", cfg.qk_norm),
         ("attn_window", cfg.attn_window is not None),
         ("mtp_depth", cfg.mtp_depth > 0),
     ) if on]
@@ -40,28 +41,42 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(unsupported)}")
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype, count: int) -> Params:
-    """`count` stacked attention+MLP layers."""
+def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: tuple[str, bool], dtype,
+               count: int) -> Params:
+    """`count` stacked attention layers with an MLP, or with the MoE block
+    where `sig` says so."""
+    _, is_moe = sig
     stack, dev = (count,), gen.device
-    return {"ln1": init_norm(cfg, cfg.d_model, dev, stack),
-            "ln2": init_norm(cfg, cfg.d_model, dev, stack),
-            "mix": attn_lib.init_attention(gen, cfg, dtype, stack),
-            "mlp": init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype, stack)}
+    p = {"ln1": init_norm(cfg, cfg.d_model, dev, stack),
+         "ln2": init_norm(cfg, cfg.d_model, dev, stack),
+         "mix": attn_lib.init_attention(gen, cfg, dtype, stack)}
+    if is_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, stack)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dtype, stack)
+    return p
 
 
 def apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
                 cache: Params | None) -> tuple[torch.Tensor, Params | None]:
+    """One residual block; the MoE's load-balance loss is a training term
+    and is dropped here."""
     h = apply_norm(cfg, p["ln1"], x)
     out, new_cache = attn_lib.attention_forward(cfg, p["mix"], h, positions,
                                                 mode=mode, cache=cache)
     x = x + out
     h = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h), new_cache
+    if "moe" in p:
+        out, _ = moe_lib.moe_forward(cfg, p["moe"], h)
+    else:
+        out = apply_mlp(cfg, p["mlp"], h)
+    return x + out, new_cache
 
 
 def layer_groups(cfg: ModelConfig) -> list[tuple[tuple[tuple[str, bool], ...], int]]:
-    """Runs of layers with one structure; a dense stack is one group."""
+    """Runs of layers with one structure; a dense stack is one group, an MoE
+    stack with leading dense layers two."""
     groups: list[tuple[tuple[tuple[str, bool], ...], int]] = []
     i = 0
     while i < cfg.n_layers:
@@ -76,8 +91,8 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[tuple[tuple[str, bool], ...], i
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype) -> list[Params]:
     """One stacked-param tree per group (leading dim = group length)."""
-    return [{"sub0": init_layer(gen, cfg, dtype, count)}
-            for _, count in layer_groups(cfg)]
+    return [{"sub0": init_layer(gen, cfg, sigs[0], dtype, count)}
+            for sigs, count in layer_groups(cfg)]
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -24,19 +24,28 @@ def _is_packed(x: Any) -> bool:
     return isinstance(x, dsp.DispatchedWeight)
 
 
+# Module names that give a leaf its matmul view (reference :54-58). The
+# attention test comes first: an attention "wo" contracts two dims, an MLP
+# "wo" one. MLA's "wq_a" / "wkv_a" and MTP's "mtp/proj" come with MLA.
+_ATTN_CONTEXT = ("mix", "attn", "self_attn", "cross_attn")
+_MLP_CONTEXT = ("mlp", "moe", "shared")
+
+
 def matmul_view(path: str) -> tuple[int, int] | None:
     """(n_contract, n_out) of the leaf at `path`, or None if it is not an
-    eligible matmul weight (reference :63, cut to the layouts of the
-    configurations the port has: attention under "mix", the gated MLP under
-    "mlp", and the head). Leading dims beyond the view are stack dims; an
-    attention "wo" contracts two dims."""
+    eligible matmul weight (reference :63): the attention projections of a
+    decoder, an encoder and both attentions of an encoder-decoder's decoder,
+    the MLPs (gated or plain), the MoE expert banks and shared MLP, and the
+    head. Leading dims beyond the view are stack dims (the layer axis, the
+    expert axis); the conv stem and the router stay dense."""
     parts = path.split("/")
     name = parts[-1]
-    if "mix" in parts and name in ("wq", "wk", "wv"):
+    in_attn = any(c in parts for c in _ATTN_CONTEXT)
+    if in_attn and name in ("wq", "wk", "wv"):
         return (1, 2)
-    if "mix" in parts and name == "wo":
+    if in_attn and name == "wo":
         return (2, 1)
-    if "mlp" in parts and name in ("wg", "wu", "wd"):
+    if name in ("wi", "wg", "wu", "wd", "wo") and any(c in parts for c in _MLP_CONTEXT):
         return (1, 1)
     if name == "unembed":
         return (1, 1)
@@ -49,9 +58,6 @@ def compress_model_params(params: Any, form: WeightForm | str) -> Any:
     cannot pack into `form` (palette wants K even, sparse K % 16 == 0) stay
     dense and keep routing through `anemm`."""
     form = WeightForm(form)
-    if "encdec" in params:
-        raise NotImplementedError("packed weight forms of the encoder-decoder's "
-                                  "layouts are not ported yet")
     if form not in dsp.FORM_KERNELS:
         raise ValueError(f"{form} has no streaming kernel; "
                          f"have {sorted(f.value for f in dsp.FORM_KERNELS)}")

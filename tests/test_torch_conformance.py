@@ -35,6 +35,12 @@ from repro_torch.kernels.act_lut.ops import table_operands
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
 
+# The one documented extension of the port's surface: float16 after the
+# reference's dtypes on the two decode rows. The reference's dispatcher sends
+# an fp16 decode to its plain jnp version; the port has no plain route on
+# the card, so its kernels take fp16 themselves.
+FP16_EXTENSION = ("decode_attention", "paged_decode_attention")
+
 
 def _seed(*parts) -> np.random.Generator:
     """The reference's per-case seed (stable hash of the case's names)."""
@@ -99,8 +105,9 @@ class TestRegistrySurface:
         jspec, tspec = jreg.get(name), treg.get(name)
         assert [(c.name, c.dims, c.edge) for c in tspec.cases] == \
             [(c.name, c.dims, c.edge) for c in jspec.cases]
+        extension = ["float16"] if name in FP16_EXTENSION else []
         assert [dtype_name(d) for d in tspec.dtypes] == \
-            [jnp.dtype(d).name for d in jspec.dtypes]
+            [jnp.dtype(d).name for d in jspec.dtypes] + extension
         for dt in tspec.dtypes:
             assert tspec.tol(dt) == jspec.tol(JDT[dtype_name(dt)])
         assert tspec.replaces.startswith("src/repro/kernels/")
@@ -137,3 +144,21 @@ def test_kernel_matches_reference(name, case_name, dt):
 @pytest.mark.parametrize("name,case_name,dt", list(_sweep(fast=False)))
 def test_kernel_matches_reference_sweep(name, case_name, dt):
     _check_case(name, case_name, dt)
+
+
+@pytest.mark.parametrize("name,case_name", [
+    pytest.param(n, c.name, id=f"{n}-{c.name}")
+    for n in FP16_EXTENSION for c in jreg.get(n).cases])
+def test_fp16_extension_matches_reference_plain(name, case_name):
+    """The extension's fp16 cases: the port's wrapper (its plain version on
+    the CPU) against the reference's plain version run in float16, on the
+    reference's fp16 input bundle, at `_flash_tol(float16)`."""
+    jspec, tspec = jreg.get(name), treg.get(name)
+    case = next(c for c in jspec.cases if c.name == case_name)
+    bundle = jspec.make_inputs(case, jnp.float16, _seed(jspec.name, case.name, jnp.float16))
+    want = np.asarray(jnp.asarray(jspec.run_oracle(bundle), jnp.float32))
+    got = tspec.run_kernel(_bridge(bundle))
+    assert got.dtype == torch.float16 and tuple(got.shape) == want.shape
+    rtol, atol = tspec.tol(torch.float16)
+    assert (rtol, atol) == jspec.tol(jnp.float16) == (3e-2, 3e-2)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=atol)

@@ -358,8 +358,9 @@ def test_continuous_equals_sequential():
 
 
 def test_encdec_refusals():
-    """A prompt below the smallest bucket, missing frames, and the knobs the
-    slice leaves out are refused loudly."""
+    """A prompt below the smallest bucket, missing frames, chunked prefill
+    and the prefix cache (also under the spec schedule) are refused loudly;
+    packed forms and the spec schedule serve (the tests below)."""
     run = _serve_both()
     model, params, cfg = run["tmodel"], run["tparams"], run["tcfg"]
     prompt, frames = run["prompts"][0], run["frames"][0]
@@ -373,12 +374,9 @@ def test_encdec_refusals():
         ContinuousSchedule(model, params, cfg, n_slots=1, max_len=24, prefill_chunk=4)
     with pytest.raises(ValueError, match="prefix cache cannot serve encdec"):
         ContinuousSchedule(model, params, cfg, n_slots=1, max_len=24, prefix_cache=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="prefix does not apply to the .spec. schedule"):
         serve.run(["--arch", ARCH, "--smoke", "--device", "cpu", "--schedule", "spec",
-                   "--prompt-lens", "8", "--gen", "2"])
-    with pytest.raises(NotImplementedError):
-        serve.run(["--arch", ARCH, "--smoke", "--device", "cpu", "--weight-form", "sparse",
-                   "--prompt-lens", "8", "--gen", "2"])
+                   "--prefix-cache", "--prompt-lens", "8", "--gen", "2"])
 
 
 def test_cli_round_trip_on_cpu(capsys):

@@ -607,7 +607,9 @@ def test_paged_wrapper_refuses_bad_operands(case):
     elif case == "pos_dtype":
         pos = pos.long()
     elif case == "q_fp16":
-        q, k, v = q.half(), k.half(), v.half()
+        # fp16 is on the surface since the fp16 decode kernel; an fp16 q
+        # against fp32 arenas is not
+        q = q.half()
     elif case == "window_0":
         window = 0
     elif case == "meta_device":
