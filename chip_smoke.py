@@ -308,7 +308,8 @@ ENCODER_DRAFTS = ("self", "shrink")
 # kept where the whole model does not fit the card beside the serve's graphs
 # (None: all of them) and why
 ARCH_RUNS = (("ane-paper", None), ("phi4-mini-3.8b", None), ("granite-8b", None),
-             ("command-r-35b", 8), ("chameleon-34b", 8), ("dbrx-132b", 4))
+             ("command-r-35b", 8), ("chameleon-34b", 8), ("dbrx-132b", 4),
+             ("recurrentgemma-9b", None), ("mamba2-1.3b", None))
 ARCH_CUTS = {
     "command-r-35b": "40 layers are ~60.6 GB bf16, and every captured program holds "
                      "its own 8.4 GB fp32 copy of the tied 256,000 x 8,192 head",
@@ -317,7 +318,24 @@ ARCH_CUTS = {
 }
 # the rows phase beyond tinyllama: per-row arithmetic this slice adds (the
 # 128-wide heads, QK-norm, the MoE router and combine)
-ROWS_ARCHS = ("granite-8b", "chameleon-34b", "dbrx-132b")
+ROWS_ARCHS = ("granite-8b", "chameleon-34b", "dbrx-132b", "recurrentgemma-9b", "mamba2-1.3b")
+# the recurrent families (the RG-LRU hybrid with sliding-window MQA, the
+# SSD), each whole on the card: the archs phase serves them, the recurrent
+# phase then serves them through spec (chain and tree), chunked prefill and
+# (the hybrid) the prefix pool, and the long-window run rolls and wraps the
+# hybrid's 2,048-slot rings
+RECURRENT_ARCHS = ("recurrentgemma-9b", "mamba2-1.3b")
+# recurrentgemma's spec runs take prompts of one prefill bucket (64): every
+# captured program keeps a 4.2 GB fp32 copy of the 256,000 x 4,096 head in
+# its private pool (target and drafter alike), and the serve phase's five
+# buckets would take the card past its 80 GB with the ~15 programs of a spec
+# serve (ROADMAP B.7); their continuous streams come from a serve of the
+# same prompts
+RECURRENT_SPEC_LENS = {"recurrentgemma-9b": "64,72,80,88,96,104,112,120",
+                       "mamba2-1.3b": SERVE_LENS}
+LONG_ARCH = "recurrentgemma-9b"
+LONG_LENS = "2304,3000"
+LONG_GEN = 64
 # flash cases the registry rows leave off, at every head dim the kernel
 # takes: (label, (B, H, KVH, Sq, Skv), masks); Sq <= 16 runs the bf16 /
 # fp16 short-query (split-KV) path
@@ -1393,8 +1411,9 @@ def check_kernels(cfg, timer) -> dict:
     check_row_invariance(cfg, failures)
     time_matmul_plans(cfg, rng, timer)
     time_stem_convs(rng, timer)
-    # the fp32 head widens the bf16 unembed on every call (reference
-    # layers.py:158-161): the copy's own device time
+    # the fp32 head's bf16 -> fp32 widening (the reference's on every call,
+    # layers.py:158-161; the port's once a head, `layers.fp32_head`): the
+    # copy's own device time
     unembed = torch.empty((cfg.d_model, cfg.padded_vocab), dtype=torch.bfloat16,
                           device="cuda").normal_()
     emit("head_widen", shape=list(unembed.shape),
@@ -1588,8 +1607,10 @@ def main(argv: list[str]) -> int:
     serve_encoder_slo(encoder_tokens)
     serve_encoder_forms()
     serve_encoder_spec(encoder_tokens)
-    for name, _ in ARCH_RUNS:
-        serve_arch(name)
+    arch_tokens = {name: serve_arch(name) for name, _ in ARCH_RUNS}
+    for name in RECURRENT_ARCHS:
+        serve_recurrent(name, arch_tokens[name])
+    serve_long_window()
     emit("script", seconds=time.perf_counter() - T0)
 
     kernels = []
@@ -1615,7 +1636,9 @@ def parity_case(cfg, form: str, kernel: str) -> None:
     (plain versions), packed once on the CPU where `form` says so: prefill
     and three teacher-forced decode steps must agree at 4x the tolerance of
     `kernel`, the row that streams the weights; the card routes every
-    matmul through `kernel`."""
+    matmul through `kernel` (and attention as `expected_routes` says). A
+    sliding-window config prefills 8 tokens past its window, so the decode
+    steps run the kernel over a ring that prefill rolled and decode wraps."""
     cpu = build_model(cfg, device="cpu")
     gpu = build_model(cfg, device="cuda")
     params_cpu = cpu.init(torch.Generator().manual_seed(0))
@@ -1623,17 +1646,18 @@ def parity_case(cfg, form: str, kernel: str) -> None:
         params_cpu = compress_model_params(params_cpu, form)
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     rtol, atol = (4 * x for x in registry.get(kernel).tol(gpu.dtype))
-    tokens = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+    prompt = cfg.attn_window + 8 if cfg.attn_window else 24
+    tokens = torch.randint(0, cfg.vocab, (2, prompt), dtype=torch.int32,
                            generator=torch.Generator().manual_seed(1))
     c_cpu, lg_cpu = cpu.prefill(params_cpu, {"tokens": tokens})
     c_gpu, lg_gpu = gpu.prefill(params_gpu, {"tokens": tokens.cuda()})
     errs = [float((lg_gpu.cpu() - lg_cpu).abs().max())]
     torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, rtol=rtol, atol=atol)
-    c_cpu = merge_prefill_caches(cpu.init_cache(2, 32), c_cpu)
-    c_gpu = merge_prefill_caches(gpu.init_cache(2, 32), c_gpu)
+    c_cpu = merge_prefill_caches(cpu.init_cache(2, prompt + 8), c_cpu)
+    c_gpu = merge_prefill_caches(gpu.init_cache(2, prompt + 8), c_gpu)
     tok = lg_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
     for i in range(3):
-        pos = torch.full((2,), 24 + i, dtype=torch.int32)
+        pos = torch.full((2,), prompt + i, dtype=torch.int32)
         c_cpu, d_cpu = cpu.decode_step(params_cpu, c_cpu, tok, pos)
         c_gpu, d_gpu = gpu.decode_step(params_gpu, c_gpu, tok.cuda(), pos.cuda())
         if not bool(torch.isfinite(d_gpu).all()):
@@ -1642,9 +1666,9 @@ def parity_case(cfg, form: str, kernel: str) -> None:
         torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=rtol, atol=atol)
         tok = d_cpu[:, -1, :cfg.vocab].argmax(-1).to(torch.int32)[:, None]
     routes = {k for k, _ in gpu.dispatcher.census()}
-    if routes != {kernel, "flash", "decode_attention"}:
+    if routes != expected_routes(cfg, kernel):
         raise AssertionError(f"{cfg.name} {form} {cfg.dtype}: card routes {routes}")
-    emit("parity", config=cfg.name, weight_form=form, dtype=cfg.dtype,
+    emit("parity", config=cfg.name, weight_form=form, dtype=cfg.dtype, prompt=prompt,
          max_abs_err=max(errs), tol=[rtol, atol], ok=True)
 
 
@@ -1658,7 +1682,7 @@ def check_parity() -> None:
 
 
 def check_parity_archs() -> None:
-    """Every arch this slice adds, at smoke size (`parity_case`): in fp32
+    """Every arch of the archs phase, at smoke size (`parity_case`): in fp32
     and in its own dtype (bf16; float16 for ane-paper)."""
     for name, _ in ARCH_RUNS:
         cfg = configs.get_smoke(name)
@@ -1768,19 +1792,22 @@ def prefix_argv(cfg, pooled: bool) -> list[str]:
     return argv
 
 
-def serve_prefix(cfg, timer) -> tuple[dict, int]:
-    """Full tinyllama-1.1b (fp16 form) through the serve CLI's entry point
-    on the prefix phase's requests, with the paged pool and without; then
-    `paged_decode_attention` on every layer's slice of the pool's served
-    arena. Returns the paged kernel's headline record and its launches in
-    that check."""
+def prefix_serves(cfg) -> tuple[list, dict]:
+    """Full tinyllama-1.1b (or `cfg`; fp16 form) through the serve CLI's
+    entry point on the prefix phase's requests, with the paged pool and
+    without: tokens in the vocab, routes cuda, launches exact, the pooled
+    streams equal the pool-less ones, the pool's hits, misses and dispatches
+    as the requests share their system prompt, the pool audited. A
+    recurrent config's state rides the pool's anchors. Returns the rounds of
+    prompts and the pooled run."""
     rounds = prefix_rounds(cfg)
     runs = {}
     for pooled in (False, True):
         tag = "pooled" if pooled else "pool-less"
+        release_memory()
         torch.cuda.reset_peak_memory_stats()
         native.reset_launch_counts()
-        out = serve.run(prefix_argv(cfg, pooled), prompts=rounds)
+        out = serve.run(prefix_argv(cfg, pooled), prompts=rounds, cfg=cfg)
         launches = native.launch_counts()
         graphs = graph_counts(f"prefix {'pooled' if pooled else 'pool-less'}", out,
                               PREFIX_NAMED)
@@ -1798,15 +1825,17 @@ def serve_prefix(cfg, timer) -> tuple[dict, int]:
         kinds = [r.key if r.key in PREFIX_NAMED else
                  "decode" if r.key == decode_key else "prefill" for r in recs]
         counts = {k: kinds.count(k) for k in ("prefill", "decode") + PREFIX_NAMED}
+        flash, decode = attention_layers(cfg)
         want = {k: 0 for k in launches}
-        want.update({"anemm": (7 * cfg.n_layers + 1) * (counts["prefill"] + counts["decode"]),
-                     "flash": cfg.n_layers * counts["prefill"],
-                     "decode_attention": cfg.n_layers * counts["decode"]})
+        want.update({"anemm": matmuls_per_forward(cfg) * (counts["prefill"] + counts["decode"]),
+                     "flash": flash * counts["prefill"],
+                     "decode_attention": decode * counts["decode"]})
         if launches != want:
             raise AssertionError(f"prefix {tag} launches {launches}, expected {want}")
         walls = {k: [r.wall_s for r, kind in zip(recs, kinds) if kind == k]
                  for k in counts if counts[k]}
         emit("prefix_serve", config=cfg.name, dtype=cfg.dtype, pooled=pooled,
+             anchored_leaves=len(out["engine"].pool._anchor_paths) if pooled else None,
              lanes=len(PREFIX_LENS), system_prompt=PREFIX_SYSTEM, prompt_lens=PREFIX_LENS,
              gen=SERVE_GEN, rounds=PREFIX_ROUNDS, block_size=PREFIX_BLOCK,
              blocks=PREFIX_BLOCKS, tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
@@ -1848,6 +1877,16 @@ def serve_prefix(cfg, timer) -> tuple[dict, int]:
     if pool.owners():
         raise AssertionError(f"prefix pool: page tables still held by {pool.owners()}")
     pool.audit()
+    return rounds, pooled
+
+
+def serve_prefix(cfg, timer) -> tuple[dict, int]:
+    """The prefix phase's serves (`prefix_serves`), then
+    `paged_decode_attention` on every layer's slice of the pool's served
+    arena. Returns the paged kernel's headline record and its launches in
+    that check."""
+    rounds, pooled = prefix_serves(cfg)
+    pool = pooled["pool"]
 
     # paged_decode_attention on the served arena, each layer's slice read in
     # place: lanes 0-3 on round 0's chain, 4-7 on round 1's; lanes 3 and 7
@@ -1900,9 +1939,10 @@ def serve_prefix(cfg, timer) -> tuple[dict, int]:
     return rec, paged
 
 
-def serve_argv(cfg, rounds: int, form: str, schedule: str = "continuous") -> list[str]:
+def serve_argv(cfg, rounds: int, form: str, schedule: str = "continuous",
+               lens: str = SERVE_LENS) -> list[str]:
     return ["--arch", cfg.name, "--schedule", schedule, "--batch", "8",
-            "--prompt-lens", SERVE_LENS, "--gen", str(SERVE_GEN),
+            "--prompt-lens", lens, "--gen", str(SERVE_GEN),
             "--requests", str(rounds), "--seed", "0", "--device", "cuda",
             "--weight-form", form]
 
@@ -2054,14 +2094,20 @@ def check_graphs(cfg) -> None:
     at K = 1 and 4 (shrink drafter), the tree draft and verify at K = 4 with
     two branches, the joint catch-up step and the joint prefill; then
     whisper-small's prefill (frames through the stem and the encoder) and
-    decode step. Every graph is dumped (`DotCapture`): none may hold a copy
-    from host memory."""
+    decode step; then, whole, recurrentgemma-9b's and mamba2-1.3b's prefill
+    and decode step, their spec verify at K = 4 (per-step copies of the
+    recurrent state, each lane's kept at its accept point), mamba2's tree
+    verify and its chunk program (`run_recurrent_graph_checks`). Every
+    graph is dumped (`DotCapture`): none may hold a copy from host memory."""
     dump_dir = ROOT / "build" / "graphs"
     dump_dir.mkdir(parents=True, exist_ok=True)
     dot = DotCapture(dump_dir)
     real_capture, dispatch._capture = dispatch._capture, dot
     try:
         run_graph_checks(cfg)
+        for name in RECURRENT_ARCHS:
+            release_memory()
+            run_recurrent_graph_checks(configs.get_config(name))
     finally:
         dispatch._capture = real_capture
     host = [m for m in dot.memcpy if "Host" in m or "HtoD" in m]
@@ -2236,24 +2282,119 @@ def run_graph_checks(cfg) -> None:
         raise AssertionError(f"graphs: {st.recaptures} recaptures")
 
 
+def run_recurrent_graph_checks(cfg) -> None:
+    """A recurrent config whole (`check_graph_replays`): prefill at bucket
+    64, the 8-lane decode step (the RG-LRU's h and the SSM's state written
+    in place), the spec verify at K = 4 with the shrink drafter (the K
+    per-step copies of every recurrent leaf live inside the graph), for
+    mamba2 the tree verify at K = 4 with two branches and the chunk program
+    (C = 64). Random caches and positions; every replay equals an eager
+    call bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tag = cfg.name.split("-")[0]
+
+    def tokens(shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def positions(lo, hi):
+        return torch.randint(lo, hi, (8,), generator=gen, device="cuda", dtype=torch.int32)
+
+    def rids():
+        return torch.randint(0, 2 ** 31 - 1, (8,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    cache = ProgramCache()
+    prog, _ = cache.compile(model.prefill, params, {"tokens": tokens((1, 64))}, per_call=(1,))
+    check_graph_replays(f"{tag} prefill bucket 64", prog,
+                        lambda i: (params, {"tokens": tokens((1, 64))}), ())
+    caches = model.init_cache(8, SERVE_MAX_LEN)
+    _random_cache(caches, gen)
+    tok, pos = tokens((8, 1)), positions(32, SERVE_MAX_LEN - 8)
+    prog, _ = cache.compile(model.decode_step, params, caches, tok, pos, per_call=(2, 3))
+    check_graph_replays(f"{tag} decode", prog,
+                        lambda i: (params, caches, tokens((8, 1)),
+                                   positions(32, SERVE_MAX_LEN - 8)), (1,))
+    del prog, caches
+    release_memory()
+
+    k, nbr = SPEC_DEPTH, 2
+    sched = SpeculativeSchedule(model, params, cfg, n_slots=8, max_len=SERVE_MAX_LEN,
+                                stream=AsyncExecutionStream(cache, device="cuda"),
+                                draft="shrink", draft_branches=nbr, draft_depth=k)
+    sched._ensure_caches()
+    sched.draft_caches = sched.drafter.model.init_cache(8, SERVE_MAX_LEN)
+    _random_cache(sched.caches, gen)
+    _random_cache(sched.draft_caches, gen)
+
+    def p0():
+        return positions(32, SERVE_MAX_LEN - 2 * k)
+
+    prog, _ = sched._verify_program(tok, pos, tokens((8, k)), rids(), k)
+    check_graph_replays(f"{tag} spec verify K={k}", prog,
+                        lambda i: (params, sched.caches, tokens((8, 1)), p0(),
+                                   tokens((8, k)), rids()), (1,))
+    if cfg.family == "ssm":
+        def tiled():
+            return tree_map(lambda leaf: leaf.repeat_interleave(nbr, dim=1),
+                            sched.draft_caches)
+
+        prog, _ = sched._verify_tree_program(tiled(), tok, pos, tokens((8, nbr, k)), rids(), k)
+        check_graph_replays(f"{tag} spec tree verify K={k} x{nbr}", prog,
+                            lambda i: (params, sched.caches, sched.draft_caches, tiled(),
+                                       tokens((8, 1)), p0(), tokens((8, nbr, k)), rids()),
+                            (1, 2))
+        chunked = ContinuousSchedule(model, params, cfg, n_slots=8, max_len=SERVE_MAX_LEN,
+                                     prefill_chunk=CHUNK_SIZE,
+                                     stream=dispatch.ExecutionStream(cache, device="cuda"))
+        chunked._ensure_caches()
+        _random_cache(chunked.staging, gen)
+
+        def lane():
+            return torch.randint(0, 8, (1,), generator=gen, device="cuda", dtype=torch.long)
+
+        def chunk_start():
+            return torch.randint(0, 6, (1,), generator=gen, device="cuda",
+                                 dtype=torch.int32) * CHUNK_SIZE
+
+        prog, _ = chunked._chunk_program(tokens((1, CHUNK_SIZE)), chunk_start(), lane())
+        check_graph_replays(f"{tag} chunk C={CHUNK_SIZE}", prog,
+                            lambda i: (params, chunked.staging, tokens((1, CHUNK_SIZE)),
+                                       chunk_start(), lane()), (1,))
+    sched.stream.close()
+    st = cache.stats
+    emit("graphs_recurrent", config=cfg.name, captures=st.captures, replays=st.replays,
+         recaptures=st.recaptures, compile_s=st.compile_seconds,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    if st.recaptures:
+        raise AssertionError(f"graphs {cfg.name}: {st.recaptures} recaptures")
+
+
 def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
-               sampling: str = "greedy") -> dict:
-    """Full tinyllama-1.1b (fp16 form) through the speculative schedule with
-    `draft` and `branches`; returns the launch counts of this run alone,
-    after checking the tokens against the continuous run's, the routes, the
-    acceptance, the dispatches per window and every kernel's launches:
-    anemm once per matmul of every forward of either model (7 per layer plus
-    the head), flash once per layer of either model per admission prefill,
-    decode_attention once per layer of every decode forward of either model,
+               sampling: str = "greedy", lens: str = SERVE_LENS,
+               rounds: int = SERVE_ROUNDS) -> dict:
+    """Full tinyllama-1.1b (or `cfg`, in its own dtype; fp16 form) through
+    the speculative schedule with `draft` and `branches` on the serve
+    phase's prompts (or `lens`), `rounds` rounds; returns the launch counts
+    of this run alone, after checking the tokens against the continuous
+    run's, the routes, the acceptance, the dispatches per window and every
+    kernel's launches: anemm once per matmul of every forward of either
+    model (`matmuls_per_forward`), flash once per flash-prefilled layer of
+    either model per admission prefill, decode_attention once per attention
+    layer of every decode forward of either model (`attention_layers`),
     specdec once per chain window and specdec_tree once per tree window."""
+    release_memory()
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
     if draft == "early_exit":
         out = serve_early_exit(cfg, branches)
     else:
-        out = serve.run(serve_argv(cfg, SERVE_ROUNDS, "fp16", "spec") + [
+        out = serve.run(serve_argv(cfg, rounds, "fp16", "spec", lens=lens) + [
             "--draft", draft, "--draft-branches", str(branches),
-            "--draft-depth", str(SPEC_DEPTH), "--sampling", sampling])
+            "--draft-depth", str(SPEC_DEPTH), "--sampling", sampling], cfg=cfg)
     launches = native.launch_counts()
     engine = out["engine"]
     tag = f"spec {draft} x{branches}" + ("" if sampling == "greedy" else f" {sampling}")
@@ -2284,13 +2425,15 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
                              f"{out['verify_dispatches']} verify dispatches")
     recs = out["records"]
     n_prefill = sum(r.key == "spec_admit_slot" for r in recs)
-    l_t, l_d = cfg.n_layers, engine.drafter.cfg.n_layers
+    dcfg = engine.drafter.cfg
+    l_d = dcfg.n_layers
+    (flash_t, attn_t), (flash_d, attn_d) = attention_layers(cfg), attention_layers(dcfg)
     t_fwd = n_prefill + out["catchup_steps"] + out["verify_steps"]
     d_fwd = n_prefill + out["catchup_steps"] + out["draft_steps"]
     want = {k: 0 for k in launches}
-    want.update({"anemm": (7 * l_t + 1) * t_fwd + (7 * l_d + 1) * d_fwd,
-                 "flash": (l_t + l_d) * n_prefill,
-                 "decode_attention": l_t * (t_fwd - n_prefill) + l_d * (d_fwd - n_prefill),
+    want.update({"anemm": matmuls_per_forward(cfg) * t_fwd + matmuls_per_forward(dcfg) * d_fwd,
+                 "flash": (flash_t + flash_d) * n_prefill,
+                 "decode_attention": attn_t * (t_fwd - n_prefill) + attn_d * (d_fwd - n_prefill),
                  "specdec": kinds.get("chain", 0), "specdec_tree": kinds.get("tree", 0)})
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
@@ -2299,7 +2442,7 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
     emit("spec", config=cfg.name, dtype=cfg.dtype, weight_form="fp16", drafter=draft,
          sampling=sampling,
          drafter_layers=l_d, draft_branches=branches, draft_depth=SPEC_DEPTH,
-         lanes=len(want_tokens), prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=SERVE_ROUNDS,
+         lanes=len(want_tokens), prompt_lens=lens, gen=SERVE_GEN, rounds=rounds,
          tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], tokens_match_continuous=True,
          acceptance_rate=out["acceptance_rate"], proposed=out["proposed"],
          accepted=out["accepted"], partial_accepts=out["partial_accepts"],
@@ -2421,13 +2564,14 @@ def step_counts(out: dict, decode_keys) -> tuple[int, int, int]:
 def check_serve_launches(tag: str, cfg, launches: dict, n_prefill: int, n_chunk: int,
                          n_decode: int) -> None:
     """A decoder's serve: anemm once per matmul of every forward
-    (`matmuls_per_forward`; a chunk is a forward), flash once per layer of
-    every prefill, decode_attention once per layer of every decode step (a
-    chunk attends in plain PyTorch); nothing else."""
+    (`matmuls_per_forward`; a chunk is a forward), flash once per
+    flash-prefilled layer of every prefill, decode_attention once per
+    attention layer of every decode step (`attention_layers`; a chunk
+    attends in plain PyTorch); nothing else."""
+    flash, decode = attention_layers(cfg)
     want = {k: 0 for k in launches}
     want.update({"anemm": matmuls_per_forward(cfg) * (n_prefill + n_chunk + n_decode),
-                 "flash": cfg.n_layers * n_prefill,
-                 "decode_attention": cfg.n_layers * n_decode})
+                 "flash": flash * n_prefill, "decode_attention": decode * n_decode})
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
 
@@ -3138,53 +3282,81 @@ def arch_config(name: str) -> tuple:
 
 
 def matmuls_per_forward(cfg) -> int:
-    """The routed matmuls of one decoder forward: 4 attention projections a
-    layer, then 3 for a dense MLP or 3 per expert bank (and 3 for a shared
-    MLP) for an MoE layer, and the head. The MoE router is not one: it runs
-    outside any kernel, as in the reference."""
-    def mlp(i):
+    """The routed matmuls of one decoder forward: a layer's mixer (4
+    attention projections, 5 for an RG-LRU block: `linear_x`, `linear_y`,
+    `w_r`, `w_i`, `out`; 6 for an SSM block, which has no MLP: `w_z`,
+    `w_x`, `w_b`, `w_c`, `w_dt`, `out_proj`), then 3 for a dense MLP or 3
+    per expert bank (and 3 for a shared MLP) for an MoE layer, and the head.
+    The MoE router is not one: it runs outside any kernel, as in the
+    reference."""
+    def layer(i):
+        kind = cfg.block_kind(i)
+        if kind == "ssm":
+            return 6
+        mix = 5 if kind == "rglru" else 4
         if not cfg.layer_is_moe(i):
-            return 3
-        return 3 * cfg.n_experts + 3 * bool(cfg.n_shared_experts)
-    return sum(4 + mlp(i) for i in range(cfg.n_layers)) + 1
+            return mix + 3
+        return mix + 3 * cfg.n_experts + 3 * bool(cfg.n_shared_experts)
+    return sum(layer(i) for i in range(cfg.n_layers)) + 1
 
 
-def serve_arch(name: str) -> None:
+def attention_layers(cfg) -> tuple[int, int]:
+    """(layers that prefill through flash, layers that decode through
+    decode_attention): every attention layer decodes through the kernel; a
+    sliding-window layer prefills through the blocked plain attention, as
+    the reference bypasses flash for it."""
+    n = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+    return (0 if cfg.attn_window else n), n
+
+
+def expected_routes(cfg, kernel: str = "anemm") -> set:
+    """The kernels a decoder's forwards route through: the matmul `kernel`
+    always, flash and decode_attention where `attention_layers` says."""
+    flash, decode = attention_layers(cfg)
+    return {kernel} | ({"flash"} if flash else set()) | ({"decode_attention"} if decode else set())
+
+
+def serve_arch(name: str, lens: str = SERVE_LENS, record: str = "arch_serve") -> np.ndarray:
     """One config of ARCH_RUNS (random weights from the seed, its own dtype)
     through the serve CLI's entry point: the continuous schedule, 8 lanes,
-    the serve phase's prompts, 32 tokens, one round. Checks: tokens in the
-    vocab, every route cuda, captures = misses, and each kernel's launches:
+    the serve phase's prompts (or `lens`), 32 tokens, one round. Checks:
+    tokens in the vocab, every route cuda and the config's routes
+    (`expected_routes`), captures = misses, and each kernel's launches:
     `anemm` `matmuls_per_forward` times per prefill and decode step, flash
-    once a layer a prefill, decode_attention once a layer a step, nothing
-    else (`check_serve_launches`). Emits tok/s, the decode step's median,
-    the digest and the peak memory. No profiled round: a traced round of
-    these models holds hundreds of thousands of device events, the tracer
-    dropped records in every attempt for some of them, and the traced
-    rounds took most of the script's time."""
+    once a flash-prefilled layer a prefill, decode_attention once an
+    attention layer a step, nothing else (`check_serve_launches`). Emits
+    tok/s, the decode step's median, the digest and the peak memory; returns
+    the tokens. No profiled round: a traced round of these models holds
+    hundreds of thousands of device events, the tracer dropped records in
+    every attempt for some of them, and the traced rounds took most of the
+    script's time."""
     cfg, reduced = arch_config(name)
     release_memory()
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
-    out = serve.run(serve_argv(cfg, 1, "fp16"), cfg=cfg)
+    out = serve.run(serve_argv(cfg, 1, "fp16", lens=lens), cfg=cfg)
     launches = native.launch_counts()
     graphs = graph_counts(f"{name} serve", out, NAMED_RECORDS)
     tokens = out["tokens"]
-    n_lanes = len(SERVE_LENS.split(","))
+    n_lanes = len(lens.split(","))
     if tokens.shape != (n_lanes, SERVE_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
         raise AssertionError(f"{name} serve tokens: shape {tokens.shape}, range "
                              f"[{tokens.min()}, {tokens.max()}]")
-    if set(out["routes"]) != {(k, "cuda") for k in ("anemm", "flash", "decode_attention")}:
-        raise AssertionError(f"{name} serve routes {out['routes']}: every route must be cuda")
+    if set(out["routes"]) != {(k, "cuda") for k in expected_routes(cfg)}:
+        raise AssertionError(f"{name} serve routes {out['routes']}: every route must be cuda, "
+                             f"the kernels {sorted(expected_routes(cfg))}")
     recs = out["records"]
     decode_key = recs[-1].key
     n_decode = sum(r.key == decode_key for r in recs)
     n_prefill = sum(r.key not in NAMED_RECORDS and r.key != decode_key for r in recs)
     check_serve_launches(f"{name} serve", cfg, launches, n_prefill, 0, n_decode)
     steps = [r.wall_s for r in recs if r.key == decode_key]
-    emit("arch_serve", config=name, dtype=cfg.dtype, n_layers=cfg.n_layers, reduced=reduced,
+    emit(record, config=name, dtype=cfg.dtype, n_layers=cfg.n_layers, reduced=reduced,
          d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
          vocab=cfg.vocab, experts=[cfg.n_experts, cfg.experts_per_token],
-         lanes=n_lanes, prompt_lens=SERVE_LENS, gen=SERVE_GEN, rounds=1,
+         family=cfg.family, block_pattern=list(cfg.block_pattern),
+         attn_window=cfg.attn_window, attention_layers=list(attention_layers(cfg)),
+         lanes=n_lanes, prompt_lens=lens, gen=SERVE_GEN, rounds=1,
          tokens_sha256=digest(tokens), tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
          prefills=n_prefill, decode_steps=n_decode,
          decode_median_ms=statistics.median(steps) * 1e3,
@@ -3194,6 +3366,162 @@ def serve_arch(name: str) -> None:
          launches=launches, **graphs,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     del out
+    return tokens
+
+
+# ---------------------------------------------------------------------------
+# the recurrent phase and the long-window run
+# ---------------------------------------------------------------------------
+
+
+def serve_recurrent(name: str, arch_tokens: np.ndarray) -> None:
+    """A recurrent config whole (its archs-phase streams `arch_tokens`):
+    spec with the shrink drafter at depth 4, chain and two branches
+    (`serve_spec`: the continuous streams, launches exact; the untrained
+    drafter rejects, so the recurrent rollback runs) on its spec prompts
+    (RECURRENT_SPEC_LENS; their continuous streams from a serve of the same
+    prompts where they are not the serve phase's), chunked prefill
+    (`serve_recurrent_chunked`) and, for the hybrid, the prefix pool
+    (`prefix_serves`: pooled streams = pool-less, the recurrent state
+    through the anchors)."""
+    cfg = configs.get_config(name)
+    lens = RECURRENT_SPEC_LENS[name]
+    want = arch_tokens if lens == SERVE_LENS else \
+        serve_arch(name, lens, record="recurrent_continuous")
+    for branches in (1, 2):
+        serve_spec(cfg, "shrink", branches, want, lens=lens, rounds=1)
+    serve_recurrent_chunked(cfg, arch_tokens)
+    if cfg.family == "hybrid":
+        prefix_serves(cfg)
+
+
+def serve_recurrent_chunked(cfg, want_tokens: np.ndarray) -> None:
+    """`cfg` whole through the serve CLI with `--prefill-chunk 64` on the
+    serve phase's prompts, one round: the chunk program carries the
+    recurrent state (and the ring) in its staging row. Routes cuda, one
+    chunk program, launches exact (`check_serve_launches`); the streams equal
+    the continuous ones (`want_tokens`) except where a stream parts at a near
+    tie (`explain_divergence`: the prompt's state comes from the prefill
+    scan on one path and the chunk scan on the other)."""
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    out = serve.run(serve_argv(cfg, 1, "fp16") + ["--prefill-chunk", str(CHUNK_SIZE)],
+                    cfg=cfg)
+    launches = native.launch_counts()
+    graphs = graph_counts(f"{cfg.name} chunked", out, NAMED_RECORDS)
+    engine = out["engine"]
+    if {b for _, b in out["routes"]} != {"cuda"} or len(engine._chunk_keys) != 1:
+        raise AssertionError(f"{cfg.name} chunked: routes {out['routes']}, "
+                             f"{len(engine._chunk_keys)} chunk programs")
+    keys = decode_keys_of(engine)
+    n_prefill, n_chunk, n_decode = step_counts(out, keys)
+    check_serve_launches(f"{cfg.name} chunked", cfg, launches, n_prefill, n_chunk, n_decode)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for n in (int(x) for x in SERVE_LENS.split(","))]
+    tokens, parted = out["tokens"], []
+    for rid, (prompt, a, b) in enumerate(zip(prompts, want_tokens, tokens)):
+        if np.array_equal(a, b):
+            continue
+        why = explain_divergence(cfg, engine.model, engine.params,
+                                 Request(rid, prompt, SERVE_GEN), a, b)
+        parted.append(why)
+        if not why["near_tie"]:
+            raise AssertionError(f"{cfg.name} chunked: request {rid} parts from the "
+                                 f"unchunked stream at token {why['token']}, not at a near "
+                                 f"tie: {why}")
+    steps = [r.wall_s for r in out["records"] if r.key in keys]
+    emit("recurrent_chunked", config=cfg.name, dtype=cfg.dtype, prefill_chunk=CHUNK_SIZE,
+         lanes=len(prompts), prompt_lens=SERVE_LENS, gen=SERVE_GEN,
+         tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], chunks=n_chunk,
+         prefills=n_prefill, decode_steps=n_decode,
+         decode_median_ms=statistics.median(steps) * 1e3,
+         streams_equal=len(prompts) - len(parted), parted_at_near_ties=parted,
+         tokens_sha256=digest(tokens), launches=launches, **graphs,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del out, engine
+
+
+class RingWatch(ContinuousSchedule):
+    """The continuous schedule, reading each lane's ring positions at the
+    step its request finishes (later idle steps write position 0 there)."""
+
+    def __init__(self, *args, **kw) -> None:
+        super().__init__(*args, **kw)
+        self.rings: dict[int, tuple[int, list[torch.Tensor]]] = {}
+
+    def _finish(self, slot, results, step) -> None:
+        lane = self.slots.index(slot)
+        rings = [leaf[:, lane].cpu() for path, leaf in leaves_with_path(self.caches)
+                 if path.endswith("/pos")]
+        self.rings[slot.req.rid] = (slot.next_pos - 1, rings)
+        super()._finish(slot, results, step)
+
+
+def serve_long_window() -> None:
+    """recurrentgemma-9b whole on 2 lanes, prompts of 2,304 and 3,000 tokens
+    drawn from seed 0, 64 tokens each (max_len 3,064, rings of 2,048 slots):
+    one prefill bucket of 2,304, so the prefill keeps its last 2,048
+    positions rolled to slot p % 2,048, and the second lane's 696 catch-up
+    steps and every lane's generation wrap the rings. At each lane's finish
+    every ring leaf (12 layers) must hold exactly the last 2,048 positions
+    it consumed, position q at slot q % 2,048; routes cuda (no flash: the
+    windowed layers prefill in plain PyTorch), launches exact, tokens in the
+    vocab. Emits the decode step's median."""
+    cfg = configs.get_config(LONG_ARCH)
+    lens = [int(x) for x in LONG_LENS.split(",")]
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    cache = ProgramCache()
+    stream = dispatch.ExecutionStream(cache, device="cuda")
+    engine = RingWatch(model, params, cfg, n_slots=len(lens), max_len=max(lens) + LONG_GEN,
+                       buckets=(min(lens),), stream=stream)
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.run([Request(i, p, LONG_GEN) for i, p in enumerate(prompts)])
+    wall = time.perf_counter() - t0
+    launches = native.launch_counts()
+    tokens = np.stack([r.tokens for r in res])
+    if tokens.shape != (len(lens), LONG_GEN) or tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"long window tokens: shape {tokens.shape}")
+    if set(model.dispatcher.census()) != {(k, "cuda") for k in expected_routes(cfg)}:
+        raise AssertionError(f"long window routes {model.dispatcher.census()}")
+    keys = decode_keys_of(engine)
+    n_prefill, _, n_decode = step_counts({"engine": engine, "records": stream.records}, keys)
+    check_serve_launches("long window", cfg, launches, n_prefill, 0, n_decode)
+    window, checked = cfg.attn_window, []
+    for rid, (last, rings) in sorted(engine.rings.items()):
+        want = torch.arange(last - window + 1, last + 1, dtype=torch.int32)
+        want = want[(want % window).argsort()]              # position q at slot q % window
+        bad = [i for i, ring in enumerate(rings) if not bool((ring == want).all())]
+        checked.append({"rid": rid, "prompt_len": lens[rid], "last_position": last,
+                        "ring_leaves": len(rings), "layers": sum(r.shape[0] for r in rings),
+                        "exact": not bad})
+        if bad or not rings:
+            raise AssertionError(f"long window rid {rid}: ring leaves {bad} of {len(rings)} do "
+                                 f"not hold positions {last - window + 1}..{last} at slot "
+                                 f"p % {window}")
+    steps = [r.wall_s for r in stream.records if r.key in keys]
+    st = cache.stats
+    emit("long_window", config=cfg.name, dtype=cfg.dtype, lanes=len(lens), prompt_lens=lens,
+         gen=LONG_GEN, max_len=max(lens) + LONG_GEN, window=window, bucket=min(lens),
+         prefills=n_prefill, decode_steps=n_decode, rings=checked,
+         decode_median_ms=statistics.median(steps) * 1e3, wall_s=wall,
+         compile_s=st.compile_seconds, captures=st.captures, recaptures=st.recaptures,
+         tok_per_s=LONG_GEN * len(lens) / max(wall - st.compile_seconds, 1e-9),
+         tokens_sha256=digest(tokens), launches=launches,
+         routes={f"{k}/{b}": n for (k, b), n in model.dispatcher.census().items()},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    if (st.captures, st.recaptures) != (st.misses, 0):
+        raise AssertionError(f"long window: {st.captures} captures, {st.recaptures} "
+                             f"recaptures, {st.misses} misses")
+    del engine, model, params
 
 
 if __name__ == "__main__":

@@ -13,6 +13,14 @@ and for the other archs the same with QK-norm's fp32 `mix/q_scale` and
 `mix/k_scale` (chameleon), or `moe: {"router", "wg", "wu", "wd"}` (and an
 optional `shared` MLP) in place of `mlp` (dbrx: the fp32 router, the
 expert banks stacked (layers, E, ...)); whisper's `encdec` tree likewise.
+A recurrent stack's groups hold one `subN` a layer of the unit (the
+hybrid's period: sub0/sub1 RG-LRU, sub2 attention): an RG-LRU mixer is
+`{"linear_x", "linear_y", "w_r", "w_i", "out", "conv_w", "conv_b", "lam"}`,
+an SSM mixer `{"w_z", "w_x", "w_b", "w_c", "w_dt", "out_proj", "conv_x_w",
+"conv_x_b", "conv_bc_w", "conv_bc_b", "dt_bias", "a_log", "d_skip",
+"norm_scale"}` (an SSM layer has `ln1` only); every leaf keeps its
+reference dtype: `lam`, `dt_bias`, `a_log`, `d_skip` and `norm_scale` in
+fp32, the projections and the conv banks in the model's dtype.
 
 bfloat16 leaves arrive with numpy's extension dtype named "bfloat16"; they
 are reinterpreted bit for bit, so no value changes on the way in. A shrink

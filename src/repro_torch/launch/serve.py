@@ -64,7 +64,9 @@ n_layers=...)`), with no CLI flag.
 
 `--arch` takes every registered architecture and `ane-paper`, the paper's
 own float16 workload config (as the reference offers it); MoE configs
-(dbrx-132b) serve every expert on every token on one device.
+(dbrx-132b) serve every expert on every token on one device; the
+recurrent configs (recurrentgemma-9b, mamba2-1.3b) carry their state
+through every schedule, the prefix pool and chunked prefill.
 """
 
 from __future__ import annotations

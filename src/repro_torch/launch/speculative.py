@@ -30,11 +30,16 @@ same under every schedule, whatever the drafter proposed.
     `specdec_tree` kernel keeps the first branch with the longest accepted
     prefix. A window with K = 0 runs the chain kernel, also in a tree run.
   * **Rollback** — decode writes the caches in place (the reference donates
-    them), so the positional slots a window will clobber are copied out
-    before its first step (gather copies) and written back after the
-    kernel wherever the position was rejected. The recurrent-state snapshots
-    of SSM / RG-LRU caches wait for those families' port: a cache leaf that
-    is not positional raises.
+    them). Positional leaves (`k`/`v`/`pos`, slot = pos % size, so a
+    sliding-window ring wraps): the slots a window will clobber are copied
+    out before its first step (gather copies) and written back after the
+    kernel wherever the position was rejected; the window depth is clamped
+    below the smallest ring, so no window wraps onto the slot it commits.
+    Recurrent leaves (the SSM's state and conv tails, the RG-LRU's h and
+    conv tail): a copy after each of the first K steps (the leaf itself
+    holds the state after the last), and each lane keeps the state at its
+    accept point (in a tree window, the winning branch's). A
+    leaf without the lane axis raises, naming its tree path.
   * **Stream** — both dispatches go on an `AsyncExecutionStream`: the draft
     is submitted without waiting, the verify takes its live proposal tensor,
     and the host syncs once per window to read the accept lengths. On the
@@ -149,16 +154,39 @@ DRAFT_KINDS = ("shrink", "self")
 # ---------------------------------------------------------------------------
 
 
-def _positional_leaves(caches) -> list[torch.Tensor]:
-    """The cache's leaves, all positional (stack, B, S, ...); anything else
-    (an SSM or RG-LRU state) raises until those families are ported."""
-    pairs = leaves_with_path(caches)
-    other = [p for p, _ in pairs if _leaf_name(p) not in TIME_MERGE_LEAVES]
-    if other:
-        raise NotImplementedError(
-            f"speculative rollback of non-positional cache leaves {other[:3]} waits for "
-            "the SSM / RG-LRU families' port")
-    return [leaf for _, leaf in pairs]
+def _rollback_leaves(caches, lanes: int) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """(positional, recurrent) leaves of a (stack, B, ...) cache tree: the
+    named KV-time leaves, restored slot by slot, and every other leaf,
+    restored from a per-step copy. A leaf whose axis 1 is not the `lanes`
+    lanes cannot be rolled back by lane and raises with its path."""
+    positional, recurrent = [], []
+    for path, leaf in leaves_with_path(caches):
+        if leaf.ndim < 2 or leaf.shape[1] != lanes:
+            raise ValueError(f"cache leaf {path!r} {tuple(leaf.shape)}: speculative rollback "
+                             f"wants (stack, {lanes} lanes, ...)")
+        if _leaf_name(path) in TIME_MERGE_LEAVES:
+            if leaf.ndim < 3:
+                raise ValueError(f"cache leaf {path!r} {tuple(leaf.shape)}: a positional "
+                                 "leaf wants a slot axis")
+            positional.append(leaf)
+        else:
+            recurrent.append(leaf)
+    return positional, recurrent
+
+
+def _keep_accepted(leaves: list[torch.Tensor], snaps: list[list[torch.Tensor]],
+                   accept: torch.Tensor, rows: torch.Tensor | None = None) -> None:
+    """Each recurrent leaf (stack, B, ...) takes, per lane, its state after
+    step `accept` of the window, in place: `snaps[j]` holds the copies after
+    steps 0..K-1 and the leaf the state after step K (in a tree window the
+    copies are of the B*nbr tiled rows, of which `rows` picks each lane's
+    winner). Selection by mask, no host read."""
+    for leaf, per_step in zip(leaves, snaps):
+        for j, snap in enumerate(per_step):
+            if rows is not None:
+                snap = snap.index_select(1, rows)
+            m = (accept == j).reshape((1, -1) + (1,) * (leaf.ndim - 2))
+            leaf.copy_(torch.where(m, snap, leaf))
 
 
 def _window_slots(leaf: torch.Tensor, p0: torch.Tensor, k: int) -> torch.Tensor:
@@ -346,19 +374,24 @@ class SpeculativeSchedule(ContinuousSchedule):
         disp = self.model.dispatcher
 
         def fused(params, caches, tok0, p0, drafts, rids):
-            leaves = _positional_leaves(caches)
+            leaves, recurrent = _rollback_leaves(caches, tok0.shape[0])
             saved = [_gather_slots(leaf, _window_slots(leaf, p0, k)) for leaf in leaves] \
                 if k else []
             tok, rows = tok0, []
+            snaps: list[list[torch.Tensor]] = [[] for _ in recurrent]
             for i in range(k + 1):
                 caches, lg = model.decode_step(params, caches, tok, p0 + i)
                 rows.append(lg[:, -1, :vocab].float())
                 if k:
                     tok = drafts[:, min(i, k - 1)][:, None]
+                if i < k:             # the state after the last step is the leaf itself
+                    for per_step, leaf in zip(snaps, recurrent):
+                        per_step.append(leaf.clone())
             scores = self._scores(rows, rids, p0)
             samples, accept = specdec_ops.verify_accept(scores, drafts, dispatcher=disp)
             if k:
                 _restore_rejected(leaves, saved, p0, accept, k)
+                _keep_accepted(recurrent, snaps, accept)
             return caches, samples, accept
 
         return self._memo(self._verify_memo, self._verify_keys,
@@ -419,25 +452,31 @@ class SpeculativeSchedule(ContinuousSchedule):
         disp = self.model.dispatcher
 
         def fused(params, caches, dcaches, dtiled, tok0, p0, drafts, rids):
-            leaves = _positional_leaves(caches)
+            b = tok0.shape[0]
+            leaves, recurrent = _rollback_leaves(caches, b)
             # every branch clobbers the same slots: save them per lane, untiled
             saved = [_gather_slots(leaf, _window_slots(leaf, p0, k)) for leaf in leaves]
-            b = tok0.shape[0]
             tiled = tree_map(lambda leaf: leaf.repeat_interleave(nbr, dim=1), caches)
+            _, tiled_recurrent = _rollback_leaves(tiled, b * nbr)
             p0t = p0.repeat_interleave(nbr)
             dflat = drafts.reshape(b * nbr, k)
             tok, rows = tok0.repeat_interleave(nbr, dim=0), []
+            snaps: list[list[torch.Tensor]] = [[] for _ in recurrent]
             for i in range(k + 1):
                 tiled, lg = model.decode_step(params, tiled, tok, p0t + i)
                 rows.append(lg[:, -1, :vocab].float())
                 tok = dflat[:, min(i, k - 1)][:, None]
+                if i < k:
+                    for per_step, leaf in zip(snaps, tiled_recurrent):
+                        per_step.append(leaf.clone())
             scores = self._scores(rows, rids.repeat_interleave(nbr), p0t)
             samples, accept, branch = specdec_ops.verify_accept_tree(
                 scores.reshape(b, nbr, k + 1, scores.shape[-1]), drafts, dispatcher=disp)
             win = torch.arange(b, device=branch.device) * nbr + branch.long()
             caches = tree_map(lambda dst, src: dst.copy_(src.index_select(1, win)),
                               caches, tiled)
-            _restore_rejected(_positional_leaves(caches), saved, p0, accept, k)
+            _restore_rejected(leaves, saved, p0, accept, k)
+            _keep_accepted(recurrent, snaps, accept, win)
             dcaches = tree_map(lambda dst, src: dst.copy_(src.index_select(1, win)),
                                dcaches, dtiled)
             return caches, dcaches, samples, accept, branch

@@ -1,19 +1,25 @@
-"""GQA attention with a KV cache: prefill through flash, decode one token.
+"""GQA attention with a KV cache: prefill through flash (or, for a
+sliding-window layer, the blocked plain attention), decode one token.
 
-After `src/repro/models/attention.py`, the non-MLA, no-window path:
+After `src/repro/models/attention.py`, the non-MLA path:
 `init_attention` (:40, with QK-norm's `q_scale` / `k_scale` at :72),
-`init_kv_cache` (:268), `_qkv` (:285, QK-norm before RoPE),
-`attention_forward` (:297),
-`_write_prefill_cache` (:353), `_append_cache` (:367-403) and
+`init_kv_cache` (:268, a ring of `min(max_len, attn_window)` slots for a
+sliding-window layer), `_qkv` (:285, QK-norm before RoPE),
+`attention_forward` (:297; a windowed layer prefills through
+`chunked_attention(window=...)`, :318-323, never the flash route, and
+decodes through the decode route with its window, :331-333),
+`_write_prefill_cache` (:353, the last `window` positions rolled to slot
+p % window when a prompt is longer), `_append_cache` (:367-403) and
 `_decode_attention` (:405-435) for one token a lane and for a prefill chunk
 of C tokens a lane, the forward of `chunked_attention` (:233),
 which is the flash route's plain version, and the encoder-decoder's
 `cross_attention_forward` / `encode_cross_kv` (:518-542).
 
 Caches keep the reference's layout, `{"k": (B, S, KV, dh), "v": ...,
-"pos": (B, S) int32}` with -1 marking an empty slot. Decode writes the new
-token into the cache in place: the reference's programs donate these
-buffers, so the port updates them where they lie instead of copying.
+"pos": (B, S) int32}` with -1 marking an empty slot; position p lives at
+slot p % S, so a sliding-window ring wraps. Decode writes the new token
+into the cache in place: the reference's programs donate these buffers, so
+the port updates them where they lie instead of copying.
 """
 
 from __future__ import annotations
@@ -117,12 +123,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device, stack: tuple[int, ...] = ()) -> Params:
-    """One layer's cache (with `stack` leading dims for a layer group)."""
-    shape = stack + (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    """One layer's cache (with `stack` leading dims for a layer group). A
+    sliding-window layer keeps a ring of the window only."""
+    size = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
+    shape = stack + (batch, size, cfg.n_kv_heads, cfg.d_head)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full(stack + (batch, max_len), -1, dtype=torch.int32,
+        "pos": torch.full(stack + (batch, size), -1, dtype=torch.int32,
                           device=device),
     }
 
@@ -143,32 +151,46 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       positions: torch.Tensor, *, mode: str,
                       cache: Params | None = None) -> tuple[torch.Tensor, Params | None]:
     """x (B, S, D), positions (B, S) int32. prefill: attend causally through
-    the flash route and return the new cache; decode: append the S tokens of
-    every lane to `cache` in place, then attend. One token a lane (S == 1,
-    a decode step) goes through the decode route; a prefill chunk (S == C)
-    attends each query up to its own position through the plain
-    `_decode_attention`, as the reference computes it outside any kernel."""
+    the flash route (a sliding-window layer: the blocked plain attention
+    with its window, as the reference bypasses flash there) and return the
+    new cache; decode: append the S tokens of every lane to `cache` in
+    place, then attend. One token a lane (S == 1, a decode step) goes
+    through the decode route; a prefill chunk (S == C) attends each query up
+    to its own position through the plain `_decode_attention`, as the
+    reference computes it outside any kernel."""
     q, k, v = _qkv(cfg, p, x, positions)
     disp = dsp.active_dispatcher()
+    window = cfg.attn_window
     if mode == "prefill":
-        out = dsp.flash_route(disp, q, k, v, causal=True)
-        new_cache = _write_prefill_cache(k, v, positions)
+        if window is None:
+            out = dsp.flash_route(disp, q, k, v, causal=True)
+        else:
+            out = chunked_attention(q, k, v, causal=True, window=window)
+        new_cache = _write_prefill_cache(k, v, positions, window)
     elif mode == "decode":
         if cache is None:
             raise ValueError("decode: the tokens attend a cache")
         new_cache = _append_cache(cache, {"k": k, "v": v}, positions)
         if x.shape[1] == 1:
             out = dsp.decode_route(disp, q[:, 0], new_cache["k"], new_cache["v"],
-                                   new_cache["pos"], positions[:, 0])[:, None]
+                                   new_cache["pos"], positions[:, 0], window=window)[:, None]
         else:
-            out = _decode_attention(q, new_cache, positions)
+            out = _decode_attention(q, new_cache, positions, window)
     else:
         raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
     out = dsp.linear(out, p["wo"], n_contract=2, bias=p.get("bo"))
     return out, new_cache
 
 
-def _write_prefill_cache(k, v, positions):
+def _write_prefill_cache(k, v, positions, window: int | None = None):
+    """The prefill's cache. A prompt longer than a sliding window keeps its
+    last `window` positions, rolled so that position p lies at slot
+    p % window (the ring invariant: decode's next write replaces the
+    oldest entry)."""
+    s = positions.shape[1]
+    if window and s > window:
+        shift = (s - window) % window
+        k, v, positions = (torch.roll(t[:, -window:], shift, dims=1) for t in (k, v, positions))
     return {"k": k, "v": v, "pos": positions}
 
 

@@ -226,9 +226,9 @@ def _matmul_dense(disp: KernelDispatcher, a2: torch.Tensor,
     from repro_torch.kernels.anemm.anemm import anemm
     from repro_torch.kernels.anemm.ref import anemm_ref
 
-    # one copy at most: a tied head's transposed table widens to a
-    # contiguous fp32 weight directly, without a contiguous bf16 copy first
-    # (`to` aliases a same-dtype view whatever the memory format)
+    # a weight of another dtype than the activation converts in one
+    # contiguous copy (`to` aliases a same-dtype view whatever the memory
+    # format); the heads arrive in fp32 already (`layers.fp32_head`)
     w2 = w2.to(a2.dtype, memory_format=torch.contiguous_format) \
         if w2.dtype != a2.dtype else w2.contiguous()
     return route_and_run(disp, "anemm", a2, lambda: anemm(a2, w2),
@@ -285,16 +285,19 @@ def flash_route(disp: KernelDispatcher, q: torch.Tensor, k: torch.Tensor,
 
 def decode_route(disp: KernelDispatcher, q: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 positions: torch.Tensor, current: torch.Tensor) -> torch.Tensor:
-    """One-token decode cell: q (B, H, dh) against a (B, S, KV, dh) cache."""
+                 positions: torch.Tensor, current: torch.Tensor, *,
+                 window: int | None = None) -> torch.Tensor:
+    """One-token decode cell: q (B, H, dh) against a (B, S, KV, dh) cache;
+    `window` masks slots `window` or more positions behind `current` (a
+    sliding-window layer's ring)."""
     from repro_torch.kernels.flash.decode_attention import (decode_attention,
                                                             decode_attention_ref)
     q = q.contiguous()
     current = current.contiguous()
     return route_and_run(
         disp, "decode_attention", q,
-        lambda: decode_attention(q, k_cache, v_cache, positions, current),
-        lambda: decode_attention_ref(q, k_cache, v_cache, positions, current))
+        lambda: decode_attention(q, k_cache, v_cache, positions, current, window=window),
+        lambda: decode_attention_ref(q, k_cache, v_cache, positions, current, window=window))
 
 
 # ---------------------------------------------------------------------------

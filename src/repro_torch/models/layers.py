@@ -12,6 +12,7 @@ the kernel); the logits head runs in fp32.
 
 from __future__ import annotations
 
+import weakref
 from typing import Any
 
 import numpy as np
@@ -176,12 +177,43 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"].index_select(0, flat).reshape(tokens.shape + (-1,))
 
 
+# (id(head parameter), transposed) -> (weak reference to it, its version,
+# its fp32 copy)
+_FP32_HEADS: dict[tuple[int, bool], tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+def fp32_head(w: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """The head weight `w` (or its transpose, a tied table's) as a
+    contiguous fp32 (d, V) tensor: the same values the fp32 `anemm` would
+    widen it to, made once per head parameter and kept while the parameter
+    lives, so neither each forward nor each captured program's private pool
+    holds a copy of its own (recurrentgemma's 256,000 x 4,096 head is 4.2 GB
+    in fp32). A copy made during a CUDA-graph capture is not kept: its
+    contents exist only in the graph's replays. A head changed in place
+    after its first forward raises."""
+    key = (id(w), transpose)
+    hit = _FP32_HEADS.get(key)
+    if hit is not None and hit[0]() is w:
+        if hit[1] != w._version:
+            raise RuntimeError("the head weight changed in place after its fp32 copy was made")
+        return hit[2]
+    wide = (w.T if transpose else w).to(torch.float32, memory_format=torch.contiguous_format)
+    if wide is w or (w.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return wide
+    _FP32_HEADS[key] = (weakref.ref(w, lambda _, key=key: _FP32_HEADS.pop(key, None)),
+                        w._version, wide)
+    return wide
+
+
 def logits(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Always fp32 out: the routed head runs the whole matmul in fp32 (an
     fp32 `anemm`), so the anchor holds although the kernel stores in its
-    input dtype. Each call widens a dense bf16 `unembed` to an fp32 copy; a
-    packed `unembed` runs the fp32 `palette` / `sparse` kernel instead."""
-    w = p["table"].T if cfg.tie_embeddings else p["unembed"]
+    input dtype. A dense `unembed` (or tied table) enters as its fp32 copy
+    (`fp32_head`); a packed `unembed` runs the fp32 `palette` / `sparse`
+    kernel instead."""
+    w = p["table"] if cfg.tie_embeddings else p["unembed"]
+    if isinstance(w, torch.Tensor):
+        w = fp32_head(w, transpose=cfg.tie_embeddings)
     return dsp.linear(x.float(), w)
 
 

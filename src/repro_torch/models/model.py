@@ -1,5 +1,5 @@
-"""Model facade: init / prefill / decode on the port's dense decoder and
-encoder-decoder.
+"""Model facade: init / prefill / decode on the port's decoders (dense,
+MoE, the RG-LRU hybrid, the SSM) and encoder-decoder.
 
 After `src/repro/models/model.py` (`Model` :42, `init` :68, `_backbone` :97,
 `forward` :119, `init_cache` :191, `prefill` :206, `decode_step` :216,
@@ -17,7 +17,12 @@ kernels, on the CPU their plain versions. An encoder-decoder (family
 "encdec", whisper-small) prefills from `batch["frames"]`: the encoder runs
 once, the cross K/V of every decoder layer is built from its output, and
 the caches are `{"self": ..., "cross": ...}`; decode reads the resident
-cross K/V and ignores frames. Training entry points come with the training
+cross K/V and ignores frames. A decoder's caches are its stack's
+(`transformer.init_stack_cache`): K/V rings for attention layers (of
+`min(max_len, attn_window)` slots for a sliding-window layer), and for
+recurrent layers state with no time axis (the RG-LRU's `h` / `conv`, the
+SSM's `state` / `conv_x` / `conv_bc`), which decode and a prefill chunk
+update in place like the K/V. Training entry points come with the training
 slice.
 """
 

@@ -1,13 +1,18 @@
 """Decoder stack: residual blocks, layer groups, stacked parameters and caches.
 
 After `src/repro/models/transformer.py`: `init_layer` (:37) and
-`apply_layer` (:57) with their MoE branch (:50-51, :88-91), the runs of equal
-`layer_signature` (:107-133, so leading dense layers before MoE ones form a
-group of their own) and `init_stack` / `init_stack_cache` / `apply_stack`
+`apply_layer` (:57) with their block kinds (attention, `rglru`, `ssm`: an
+SSM layer is a norm and the mixer, with no `ln2` and no MLP, :42-44, :81-84)
+and their MoE branch (:50-51, :88-91), `init_layer_cache` (:97-104),
+`layer_groups` (:107-133: a block-patterned hybrid groups whole pattern
+periods, then its remaining layers one by one; otherwise runs of equal
+`layer_signature`, so leading dense layers before MoE ones form a group of
+their own) and `init_stack` / `init_stack_cache` / `apply_stack`
 (:136-239). Parameters and caches keep the reference's stacked layout — a
-list of groups, each `{"sub0": {...}}` with a leading layer axis — so both
-compare leaf for leaf with the reference's trees. A Python loop over a
-group's layers replaces `lax.scan`; layer `i` reads `leaf[i]`, a view.
+list of groups, each `{"sub0": {...}, "sub1": ...}` (one entry a layer of
+the group's unit) with a leading unit axis — so both compare leaf for leaf
+with the reference's trees. A Python loop over a group's units replaces
+`lax.scan`; unit `i` reads `leaf[i]`, a view.
 """
 
 from __future__ import annotations
@@ -19,8 +24,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import Params, apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.tree import tree_map
+
+Signature = tuple[str, bool]
 
 
 def layer_signature(cfg: ModelConfig, idx: int) -> tuple[str, bool]:
@@ -28,28 +37,35 @@ def layer_signature(cfg: ModelConfig, idx: int) -> tuple[str, bool]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves GQA decoders (dense, QK-norm, one-device MoE) and the
-    encoder-decoder so far; refuse anything else loudly."""
+    """The port serves GQA decoders (dense, QK-norm, sliding-window,
+    one-device MoE), the RG-LRU hybrid, the SSM and the encoder-decoder so
+    far; refuse anything else loudly."""
     unsupported = [name for name, on in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "encdec")),
-        ("block_pattern", bool(cfg.block_pattern)),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "encdec", "ssm",
+                                                       "hybrid")),
         ("MLA", cfg.use_mla),
-        ("attn_window", cfg.attn_window is not None),
         ("mtp_depth", cfg.mtp_depth > 0),
     ) if on]
     if unsupported:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(unsupported)}")
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: tuple[str, bool], dtype,
+def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dtype,
                count: int) -> Params:
-    """`count` stacked attention layers with an MLP, or with the MoE block
-    where `sig` says so."""
-    _, is_moe = sig
+    """`count` stacked layers of kind `sig`: a norm and the SSM mixer, or a
+    norm, the attention or RG-LRU mixer, a norm and the MLP (the MoE block
+    where `sig` says so)."""
+    kind, is_moe = sig
     stack, dev = (count,), gen.device
-    p = {"ln1": init_norm(cfg, cfg.d_model, dev, stack),
-         "ln2": init_norm(cfg, cfg.d_model, dev, stack),
-         "mix": attn_lib.init_attention(gen, cfg, dtype, stack)}
+    p: Params = {"ln1": init_norm(cfg, cfg.d_model, dev, stack)}
+    if kind == "ssm":
+        p["mix"] = ssm_lib.init_ssm(gen, cfg, dtype, stack)
+        return p
+    p["ln2"] = init_norm(cfg, cfg.d_model, dev, stack)
+    if kind == "rglru":
+        p["mix"] = rglru_lib.init_rglru(gen, cfg, dtype, stack)
+    else:
+        p["mix"] = attn_lib.init_attention(gen, cfg, dtype, stack)
     if is_moe:
         p["moe"] = moe_lib.init_moe(gen, cfg, dtype, stack)
     else:
@@ -57,14 +73,21 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: tuple[str, bool], dt
     return p
 
 
-def apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def apply_layer(cfg: ModelConfig, sig: Signature, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
                 cache: Params | None) -> tuple[torch.Tensor, Params | None]:
     """One residual block; the MoE's load-balance loss is a training term
     and is dropped here."""
+    kind, _ = sig
     h = apply_norm(cfg, p["ln1"], x)
-    out, new_cache = attn_lib.attention_forward(cfg, p["mix"], h, positions,
-                                                mode=mode, cache=cache)
+    if kind == "ssm":
+        out, new_cache = ssm_lib.ssm_forward(cfg, p["mix"], h, mode=mode, cache=cache)
+        return x + out, new_cache
+    if kind == "rglru":
+        out, new_cache = rglru_lib.rglru_forward(cfg, p["mix"], h, mode=mode, cache=cache)
+    else:
+        out, new_cache = attn_lib.attention_forward(cfg, p["mix"], h, positions,
+                                                    mode=mode, cache=cache)
     x = x + out
     h = apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
@@ -74,10 +97,34 @@ def apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x + out, new_cache
 
 
-def layer_groups(cfg: ModelConfig) -> list[tuple[tuple[tuple[str, bool], ...], int]]:
-    """Runs of layers with one structure; a dense stack is one group, an MoE
-    stack with leading dense layers two."""
-    groups: list[tuple[tuple[tuple[str, bool], ...], int]] = []
+def init_layer_cache(cfg: ModelConfig, sig: Signature, batch: int, max_len: int, dtype,
+                     device, count: int) -> Params:
+    """`count` stacked caches of kind `sig`: the SSM's state and conv
+    tails, the RG-LRU's h and conv tail, or attention's K/V (a ring for a
+    sliding-window layer)."""
+    kind, _ = sig
+    stack = (count,)
+    if kind == "ssm":
+        return ssm_lib.init_ssm_cache(cfg, batch, dtype, device, stack)
+    if kind == "rglru":
+        return rglru_lib.init_rglru_cache(cfg, batch, dtype, device, stack)
+    return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device, stack)
+
+
+def layer_groups(cfg: ModelConfig) -> list[tuple[tuple[Signature, ...], int]]:
+    """Groups of stacked units. A block-patterned hybrid's unit is one whole
+    pattern period (recurrentgemma-9b: 12 periods of (rglru, rglru, attn)),
+    then its remaining layers one group each (2); otherwise a unit is one
+    layer and a group a run of equal signatures (a dense stack one group,
+    an MoE stack with leading dense layers two)."""
+    if cfg.block_pattern:
+        period = len(cfg.block_pattern)
+        n_periods = cfg.n_layers // period
+        groups = [(tuple(layer_signature(cfg, i) for i in range(period)), n_periods)]
+        for li in range(n_periods * period, cfg.n_layers):
+            groups.append(((layer_signature(cfg, li),), 1))
+        return groups
+    groups: list[tuple[tuple[Signature, ...], int]] = []
     i = 0
     while i < cfg.n_layers:
         sig = layer_signature(cfg, i)
@@ -91,15 +138,15 @@ def layer_groups(cfg: ModelConfig) -> list[tuple[tuple[tuple[str, bool], ...], i
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype) -> list[Params]:
     """One stacked-param tree per group (leading dim = group length)."""
-    return [{"sub0": init_layer(gen, cfg, sigs[0], dtype, count)}
+    return [{f"sub{i}": init_layer(gen, cfg, sig, dtype, count) for i, sig in enumerate(sigs)}
             for sigs, count in layer_groups(cfg)]
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device) -> list[Params]:
-    return [{"sub0": attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                            (count,))}
-            for _, count in layer_groups(cfg)]
+    return [{f"sub{i}": init_layer_cache(cfg, sig, batch, max_len, dtype, device, count)
+             for i, sig in enumerate(sigs)}
+            for sigs, count in layer_groups(cfg)]
 
 
 def apply_stack(cfg: ModelConfig, stacks: list[Params], x: torch.Tensor,
@@ -108,18 +155,20 @@ def apply_stack(cfg: ModelConfig, stacks: list[Params], x: torch.Tensor,
     """prefill: builds and returns stacked caches; decode: updates `caches`
     in place and returns them."""
     new_caches: list[Params] = []
-    for gi, (_, count) in enumerate(layer_groups(cfg)):
-        stacked = stacks[gi]["sub0"]
-        gcache = caches[gi]["sub0"] if caches is not None else None
-        per_layer: list[Any] = []
+    for gi, (sigs, count) in enumerate(layer_groups(cfg)):
+        per_layer: dict[str, list[Any]] = {f"sub{j}": [] for j in range(len(sigs))}
         for i in range(count):
-            unit_p = tree_map(lambda a: a[i], stacked)
-            unit_c = tree_map(lambda a: a[i], gcache) if gcache is not None else None
-            x, nc = apply_layer(cfg, unit_p, x, positions, mode=mode, cache=unit_c)
-            per_layer.append(nc)
+            for j, sig in enumerate(sigs):
+                sub = f"sub{j}"
+                unit_p = tree_map(lambda a: a[i], stacks[gi][sub])
+                unit_c = tree_map(lambda a: a[i], caches[gi][sub]) \
+                    if caches is not None else None
+                x, nc = apply_layer(cfg, sig, unit_p, x, positions, mode=mode, cache=unit_c)
+                per_layer[sub].append(nc)
         if mode == "prefill":
-            new_caches.append({"sub0": {name: torch.stack([c[name] for c in per_layer])
-                                        for name in per_layer[0]}})
+            new_caches.append({sub: {name: torch.stack([c[name] for c in per])
+                                     for name in per[0]}
+                               for sub, per in per_layer.items()})
         else:
             new_caches.append(caches[gi])
     return x, new_caches

@@ -212,22 +212,29 @@ def _port_config(jcfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(jcfg))
 
 
+# Sliding windows, block patterns and the SSM / hybrid families are ported
+# (tests/test_torch_recurrent.py); each still refuses MTP heads, and MLA
+# stays refused by name.
 @pytest.mark.parametrize("cfg,feature", [
     pytest.param(_port_config(jconfigs.get_smoke("deepseek-v3-671b")), "MLA", id="mla"),
     pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), mtp_depth=1),
                  "mtp_depth", id="mtp"),
-    pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), attn_window=8),
-                 "attn_window", id="window"),
+    pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), attn_window=8,
+                                     mtp_depth=1),
+                 "mtp_depth", id="window"),
     pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"),
-                                     block_pattern=("attn", "attn")),
-                 "block_pattern", id="pattern"),
-    pytest.param(_port_config(jconfigs.get_smoke("mamba2-1.3b")), "family 'ssm'", id="ssm"),
-    pytest.param(_port_config(jconfigs.get_smoke("recurrentgemma-9b")), "family 'hybrid'",
-                 id="hybrid"),
+                                     block_pattern=("attn", "attn"), mtp_depth=1),
+                 "mtp_depth", id="pattern"),
+    pytest.param(dataclasses.replace(configs.get_smoke("mamba2-1.3b"), use_mla=True),
+                 "MLA", id="ssm"),
+    pytest.param(dataclasses.replace(configs.get_smoke("recurrentgemma-9b"), mtp_depth=1),
+                 "mtp_depth", id="hybrid"),
 ])
 def test_unported_features_are_refused_by_name(cfg, feature):
     with pytest.raises(NotImplementedError, match=feature):
         build_model(cfg, device="cpu")
+    # without the refused feature the config builds
+    build_model(dataclasses.replace(cfg, use_mla=False, mtp_depth=0), device="cpu")
 
 
 def test_cli_serves_ane_paper_and_refuses_a_foreign_cfg(capsys):

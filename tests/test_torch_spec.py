@@ -39,7 +39,7 @@ from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream, Ke
 from repro_torch.kernels import native
 from repro_torch.launch import serve
 from repro_torch.launch.scheduler import Request, SequentialSchedule
-from repro_torch.launch.speculative import (Drafter, SpeculativeSchedule, _positional_leaves,
+from repro_torch.launch.speculative import (Drafter, SpeculativeSchedule, _rollback_leaves,
                                             draft_of)
 from repro_torch.models.model import build_model
 
@@ -354,9 +354,13 @@ def test_spec_rejects_bad_setups():
 
 
 def test_rollback_refuses_non_positional_cache_leaves():
-    caches = [{"sub0": {"k": torch.zeros(1, 2, 4, 1, 2), "state": torch.zeros(1, 2, 3)}}]
-    with pytest.raises(NotImplementedError, match="SSM"):
-        _positional_leaves(caches)
+    """Recurrent leaves roll back from per-step copies; a leaf without the
+    lane axis cannot, and raises with its tree path."""
+    k, state = torch.zeros(1, 2, 4, 1, 2), torch.zeros(1, 2, 3)
+    positional, recurrent = _rollback_leaves([{"sub0": {"k": k, "state": state}}], 2)
+    assert positional == [k] and recurrent == [state]
+    with pytest.raises(ValueError, match="0/sub0/state"):
+        _rollback_leaves([{"sub0": {"k": k, "state": torch.zeros(1, 3, 3)}}], 2)
 
 
 def test_serve_cli_spec_schedule():
