@@ -73,14 +73,16 @@ printing one JSON line for each:
                dense and packed (int4_palette, sparse), fp32 and bf16; the
                same for whisper-small smoke (frames through the conv stem),
                and for every arch of the archs phase at smoke size, fp32 and
-               its own dtype;
+               its own dtype (deepseek-v3-671b's MLA and MTP module too);
   5. rows    — full tinyllama-1.1b decode steps on 8 lanes and on the same
                8 lanes twice over (16 rows): the first 8 rows' logits must be
                equal bit for bit (a tree verify window runs 16 rows where
                decode runs 8, and the spec streams must equal the continuous
                ones); the same for full granite-8b, chameleon-34b (8
-               layers: QK-norm) and dbrx-132b (4 layers: the MoE router and
-               combine);
+               layers: QK-norm), dbrx-132b (4 layers: the MoE router and
+               combine), recurrentgemma-9b, mamba2-1.3b (the recurrent
+               states) and deepseek-v3-671b (4 layers: MLA's latent norms
+               and absorbed decode, computed lane by lane);
   6. sampling — jax's threefry chain (`core.prng`) on the card against
                the same code on the CPU: the known key data of PRNGKey(0)
                -> fold_in(3) -> fold_in(17), the (rid, pos) keys, 32-bit
@@ -198,14 +200,31 @@ printing one JSON line for each:
   16. archs  — every config this slice adds, served through the serve
                CLI's entry point (continuous, 8 lanes, the serve phase's
                prompts, 32 tokens, one round; random weights from the seed):
-               ane-paper (float16), phi4-mini-3.8b and granite-8b whole,
-               command-r-35b and chameleon-34b at 8 layers and dbrx-132b at
-               4 (full widths; each cut and its reason on the line, as
-               `reduced`): every route cuda, captures = misses, each
-               kernel's launches exactly as the config implies (anemm 7 a
-               layer and the head for a dense arch, 4 + 3 per expert bank
-               for dbrx's MoE layers), tok/s, the decode step's median, the
-               digest, the peak memory.
+               ane-paper (float16), phi4-mini-3.8b, granite-8b and the
+               recurrent archs whole, command-r-35b and chameleon-34b at 8
+               layers, dbrx-132b and deepseek-v3-671b at 4 (full widths;
+               each cut and its reason on the line, as `reduced`;
+               deepseek with its MTP module, which no served program
+               reads): every route cuda, captures = misses, each kernel's
+               launches exactly as the config implies (anemm 7 a layer and
+               the head for a dense arch, 4 + 3 per expert bank for dbrx's
+               MoE layers; deepseek 797 a decode step, 801 a prefill), tok/s,
+               the decode step's median, the digest, the peak memory;
+  17. recurrent — recurrentgemma-9b and mamba2-1.3b through spec (shrink,
+               chain and two branches), chunked prefill and (the hybrid)
+               the prefix pool; then the long-window run: recurrentgemma on
+               2 lanes, prompts of 2,304 and 3,000, its rings' positions
+               checked at each lane's finish;
+  18. mla    — deepseek-v3-671b at 4 layers without its MTP module: a
+               continuous serve of 8 prompts of one prefill bucket, whose
+               params are written in the reference's checkpoint layout
+               (numpy, under build/) and served back through `--ckpt` from
+               another seed's init (the same streams); spec with the shrink
+               drafter, chain and two branches (the continuous streams,
+               exact launches); `--prefill-chunk 64` (the archs phase's
+               streams, or parted at near ties); the prefix pool (pooled =
+               pool-less); and int4_palette (`wq_b` / `wkv_b` on anemm,
+               the rest on palette, launches exact).
 
 Then a `script` line with the whole run's seconds, a `kernels` line with
 every kernel's numbers, the card's name and power limit as nvidia-smi
@@ -233,11 +252,14 @@ import gc
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -309,16 +331,30 @@ ENCODER_DRAFTS = ("self", "shrink")
 # (None: all of them) and why
 ARCH_RUNS = (("ane-paper", None), ("phi4-mini-3.8b", None), ("granite-8b", None),
              ("command-r-35b", 8), ("chameleon-34b", 8), ("dbrx-132b", 4),
-             ("recurrentgemma-9b", None), ("mamba2-1.3b", None))
+             ("recurrentgemma-9b", None), ("mamba2-1.3b", None), ("deepseek-v3-671b", 4))
 ARCH_CUTS = {
     "command-r-35b": "40 layers are ~60.6 GB bf16, and every captured program holds "
                      "its own 8.4 GB fp32 copy of the tied 256,000 x 8,192 head",
     "chameleon-34b": "48 layers are ~68.6 GB bf16",
     "dbrx-132b": "~6.5 GB of bf16 weights a layer: 16 expert banks, each read every step",
+    "deepseek-v3-671b": "~683 B parameters (1.37 TB bf16); an MoE layer is ~11.5 B (256 "
+                        "expert banks of 7,168 x 2,048 x 3, each read every step), a dense "
+                        "one ~0.58 B: the 3 dense layers and the first MoE layer, with the "
+                        "MTP module (another MoE layer), are 26.7 B (~53.4 GB)",
 }
-# the rows phase beyond tinyllama: per-row arithmetic this slice adds (the
-# 128-wide heads, QK-norm, the MoE router and combine)
-ROWS_ARCHS = ("granite-8b", "chameleon-34b", "dbrx-132b", "recurrentgemma-9b", "mamba2-1.3b")
+# the rows phase beyond tinyllama: per-row arithmetic the slices add (the
+# 128-wide heads, QK-norm, the MoE router and combine, the recurrent states,
+# MLA's latent norms and absorbed decode)
+ROWS_ARCHS = ("granite-8b", "chameleon-34b", "dbrx-132b", "recurrentgemma-9b", "mamba2-1.3b",
+              "deepseek-v3-671b")
+# the mla phase: deepseek-v3-671b at the archs phase's depth without the MTP
+# module (no served program reads it, so the streams are the archs phase's),
+# served through spec (chain and tree), chunked prefill, the prefix pool, an
+# int4_palette form and --ckpt. Its spec, int4 and checkpoint serves take
+# prompts of one prefill bucket (64): every captured program holds a pool of
+# its own, and one bucket keeps the phase's programs and time few
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LENS = "64,72,80,88,96,104,112,120"
 # the recurrent families (the RG-LRU hybrid with sliding-window MQA, the
 # SSD), each whole on the card: the archs phase serves them, the recurrent
 # phase then serves them through spec (chain and tree), chunked prefill and
@@ -1611,6 +1647,7 @@ def main(argv: list[str]) -> int:
     for name in RECURRENT_ARCHS:
         serve_recurrent(name, arch_tokens[name])
     serve_long_window()
+    serve_mla(arch_tokens[MLA_ARCH])
     emit("script", seconds=time.perf_counter() - T0)
 
     kernels = []
@@ -1827,7 +1864,7 @@ def prefix_serves(cfg) -> tuple[list, dict]:
         counts = {k: kinds.count(k) for k in ("prefill", "decode") + PREFIX_NAMED}
         flash, decode = attention_layers(cfg)
         want = {k: 0 for k in launches}
-        want.update({"anemm": matmuls_per_forward(cfg) * (counts["prefill"] + counts["decode"]),
+        want.update({"anemm": anemm_launches(cfg, counts["prefill"], counts["decode"]),
                      "flash": flash * counts["prefill"],
                      "decode_attention": decode * counts["decode"]})
         if launches != want:
@@ -2431,7 +2468,8 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
     t_fwd = n_prefill + out["catchup_steps"] + out["verify_steps"]
     d_fwd = n_prefill + out["catchup_steps"] + out["draft_steps"]
     want = {k: 0 for k in launches}
-    want.update({"anemm": matmuls_per_forward(cfg) * t_fwd + matmuls_per_forward(dcfg) * d_fwd,
+    want.update({"anemm": anemm_launches(cfg, n_prefill, t_fwd - n_prefill)
+                 + anemm_launches(dcfg, n_prefill, d_fwd - n_prefill),
                  "flash": (flash_t + flash_d) * n_prefill,
                  "decode_attention": attn_t * (t_fwd - n_prefill) + attn_d * (d_fwd - n_prefill),
                  "specdec": kinds.get("chain", 0), "specdec_tree": kinds.get("tree", 0)})
@@ -2570,7 +2608,7 @@ def check_serve_launches(tag: str, cfg, launches: dict, n_prefill: int, n_chunk:
     attends in plain PyTorch); nothing else."""
     flash, decode = attention_layers(cfg)
     want = {k: 0 for k in launches}
-    want.update({"anemm": matmuls_per_forward(cfg) * (n_prefill + n_chunk + n_decode),
+    want.update({"anemm": anemm_launches(cfg, n_prefill, n_chunk + n_decode),
                  "flash": flash * n_prefill, "decode_attention": decode * n_decode})
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
@@ -3281,30 +3319,41 @@ def arch_config(name: str) -> tuple:
         {"n_layers": layers, "of": full.n_layers, "why": ARCH_CUTS[name]}
 
 
-def matmuls_per_forward(cfg) -> int:
+def matmuls_per_forward(cfg, prefill: bool = False) -> int:
     """The routed matmuls of one decoder forward: a layer's mixer (4
-    attention projections, 5 for an RG-LRU block: `linear_x`, `linear_y`,
-    `w_r`, `w_i`, `out`; 6 for an SSM block, which has no MLP: `w_z`,
-    `w_x`, `w_b`, `w_c`, `w_dt`, `out_proj`), then 3 for a dense MLP or 3
-    per expert bank (and 3 for a shared MLP) for an MoE layer, and the head.
-    The MoE router is not one: it runs outside any kernel, as in the
+    attention projections; for MLA 4 at decode and in a chunk, `wq_a`,
+    `wq_b`, `wkv_a`, `wo`, and 5 at prefill, where `wkv_b` expands the
+    latent; 5 for an RG-LRU block: `linear_x`, `linear_y`, `w_r`, `w_i`,
+    `out`; 6 for an SSM block, which has no MLP: `w_z`, `w_x`, `w_b`, `w_c`,
+    `w_dt`, `out_proj`), then 3 for a dense MLP or 3 per expert bank (and 3
+    for a shared MLP) for an MoE layer, and the head. The MoE router and
+    MLA's absorbed products are not: they run outside any kernel, as in the
     reference."""
     def layer(i):
         kind = cfg.block_kind(i)
         if kind == "ssm":
             return 6
-        mix = 5 if kind == "rglru" else 4
+        mix = 5 if kind == "rglru" or (cfg.use_mla and prefill) else 4
         if not cfg.layer_is_moe(i):
             return mix + 3
         return mix + 3 * cfg.n_experts + 3 * bool(cfg.n_shared_experts)
     return sum(layer(i) for i in range(cfg.n_layers)) + 1
 
 
+def anemm_launches(cfg, n_prefill: int, n_other: int) -> int:
+    """`anemm` launches of `n_prefill` prefill forwards and `n_other`
+    decode steps and chunks (`matmuls_per_forward`)."""
+    return matmuls_per_forward(cfg, True) * n_prefill + matmuls_per_forward(cfg) * n_other
+
+
 def attention_layers(cfg) -> tuple[int, int]:
     """(layers that prefill through flash, layers that decode through
     decode_attention): every attention layer decodes through the kernel; a
     sliding-window layer prefills through the blocked plain attention, as
-    the reference bypasses flash for it."""
+    the reference bypasses flash for it; an MLA layer reaches neither (its
+    prefill is the plain blocked attention, its decode the absorbed form)."""
+    if cfg.use_mla:
+        return 0, 0
     n = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
     return (0 if cfg.attn_window else n), n
 
@@ -3316,7 +3365,8 @@ def expected_routes(cfg, kernel: str = "anemm") -> set:
     return {kernel} | ({"flash"} if flash else set()) | ({"decode_attention"} if decode else set())
 
 
-def serve_arch(name: str, lens: str = SERVE_LENS, record: str = "arch_serve") -> np.ndarray:
+def serve_arch(name: str, lens: str = SERVE_LENS, record: str = "arch_serve",
+               cut: tuple | None = None, keep_params: bool = False):
     """One config of ARCH_RUNS (random weights from the seed, its own dtype)
     through the serve CLI's entry point: the continuous schedule, 8 lanes,
     the serve phase's prompts (or `lens`), 32 tokens, one round. Checks:
@@ -3329,8 +3379,9 @@ def serve_arch(name: str, lens: str = SERVE_LENS, record: str = "arch_serve") ->
     the tokens. No profiled round: a traced round of these models holds
     hundreds of thousands of device events, the tracer dropped records in
     every attempt for some of them, and the traced rounds took most of the
-    script's time."""
-    cfg, reduced = arch_config(name)
+    script's time. `cut`: another (config, reduced) of the arch to serve;
+    `keep_params`: return (tokens, the served params)."""
+    cfg, reduced = cut or arch_config(name)
     release_memory()
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
@@ -3360,13 +3411,15 @@ def serve_arch(name: str, lens: str = SERVE_LENS, record: str = "arch_serve") ->
          tokens_sha256=digest(tokens), tok_per_s=out["tok_per_s"], wall_s=out["wall_s"],
          prefills=n_prefill, decode_steps=n_decode,
          decode_median_ms=statistics.median(steps) * 1e3,
-         matmuls_per_forward=matmuls_per_forward(cfg), n_dispatches=out["n_dispatches"],
+         matmuls_per_forward=matmuls_per_forward(cfg),
+         matmuls_per_prefill=matmuls_per_forward(cfg, True), n_dispatches=out["n_dispatches"],
          cache_hits=out["cache_hits"], cache_misses=out["cache_misses"],
          routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
          launches=launches, **graphs,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    params = out["engine"].params if keep_params else None
     del out
-    return tokens
+    return (tokens, params) if keep_params else tokens
 
 
 # ---------------------------------------------------------------------------
@@ -3395,7 +3448,8 @@ def serve_recurrent(name: str, arch_tokens: np.ndarray) -> None:
         prefix_serves(cfg)
 
 
-def serve_recurrent_chunked(cfg, want_tokens: np.ndarray) -> None:
+def serve_recurrent_chunked(cfg, want_tokens: np.ndarray,
+                            record: str = "recurrent_chunked") -> None:
     """`cfg` whole through the serve CLI with `--prefill-chunk 64` on the
     serve phase's prompts, one round: the chunk program carries the
     recurrent state (and the ring) in its staging row. Routes cuda, one
@@ -3432,7 +3486,7 @@ def serve_recurrent_chunked(cfg, want_tokens: np.ndarray) -> None:
                                  f"unchunked stream at token {why['token']}, not at a near "
                                  f"tie: {why}")
     steps = [r.wall_s for r in out["records"] if r.key in keys]
-    emit("recurrent_chunked", config=cfg.name, dtype=cfg.dtype, prefill_chunk=CHUNK_SIZE,
+    emit(record, config=cfg.name, dtype=cfg.dtype, prefill_chunk=CHUNK_SIZE,
          lanes=len(prompts), prompt_lens=SERVE_LENS, gen=SERVE_GEN,
          tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], chunks=n_chunk,
          prefills=n_prefill, decode_steps=n_decode,
@@ -3522,6 +3576,146 @@ def serve_long_window() -> None:
         raise AssertionError(f"long window: {st.captures} captures, {st.recaptures} "
                              f"recaptures, {st.misses} misses")
     del engine, model, params
+
+
+# ---------------------------------------------------------------------------
+# the mla phase
+# ---------------------------------------------------------------------------
+
+
+def mla_config() -> tuple:
+    """(deepseek-v3-671b at the archs phase's depth without its MTP module,
+    reduced)."""
+    cfg, reduced = arch_config(MLA_ARCH)
+    return dataclasses.replace(cfg, mtp_depth=0), dict(
+        reduced, mtp_depth={"kept": 0, "of": cfg.mtp_depth,
+                            "why": "no served program reads the MTP module (the reference "
+                                   "reads it only in its training loss), so the streams are "
+                                   "those with it; its 11.6 B parameters (~23 GB) would sit "
+                                   "beside the spec serves' 11 captured programs"})
+
+
+def write_reference_checkpoint(params, directory: Path, step: int) -> int:
+    """`params` (dense) in the reference's checkpoint layout
+    (`src/repro/checkpoint/checkpoint.py`), written with numpy: `step_%09d/`
+    holding `manifest.json` (flat "a/b/c" -> shape and dtype), `arrays.npz`
+    (each leaf under "a|b|c", one leaf at a time; bfloat16 as raw 2-byte
+    records, the manifest naming the dtype) and `COMMIT`, written last.
+    Returns the bytes written."""
+    d = directory / f"step_{step:09d}"
+    d.mkdir(parents=True)
+    manifest, nbytes = {}, 0
+    with zipfile.ZipFile(d / "arrays.npz", "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for path, leaf in leaves_with_path(params):
+            t = leaf.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                arr, dt = t.view(torch.int16).numpy().view("V2"), "bfloat16"
+            else:
+                arr = t.numpy()
+                dt = str(arr.dtype)
+            manifest[path] = {"shape": list(arr.shape), "dtype": dt}
+            nbytes += arr.nbytes
+            with zf.open(path.replace("/", "|") + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
+            del t, arr
+    (d / "manifest.json").write_text(json.dumps(manifest))
+    (d / "COMMIT").write_text("ok")
+    return nbytes
+
+
+def serve_mla_ckpt(cfg, reduced: dict, ckpt: Path, want_tokens: np.ndarray,
+                   written: dict) -> None:
+    """The checkpoint `ckpt` of the mla phase's served params (written in
+    the reference's layout, `written`: its bytes and seconds) served through
+    `--ckpt` from another seed's init (the same prompts, MLA_LENS drawn from
+    seed 0): the restored weights must give the direct serve's streams."""
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    lens = [int(x) for x in MLA_LENS.split(",")]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    argv = ["--arch", cfg.name, "--batch", "8", "--gen", str(SERVE_GEN), "--seed", "1",
+            "--device", "cuda", "--ckpt", str(ckpt)]
+    t0 = time.perf_counter()
+    out = serve.run(argv, prompts=[prompts], cfg=cfg)
+    serve_s = time.perf_counter() - t0
+    same = np.array_equal(out["tokens"], want_tokens)
+    emit("mla_ckpt", config=cfg.name, reduced=reduced, **written,
+         serve_with_restore_s=serve_s, step=out["ckpt_step"],
+         tokens_sha256=digest(out["tokens"]), want_sha256=digest(want_tokens),
+         streams_equal=same, routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not same or out["ckpt_step"] != 7:
+        raise AssertionError(f"--ckpt: step {out['ckpt_step']}, streams equal {same}")
+    del out
+
+
+def serve_mla_packed(cfg, form: str = "int4_palette") -> None:
+    """The mla phase's config packed on the card (`--weight-form`), MLA_LENS,
+    one round: tokens in the vocab, routes cuda; `wq_b` (and, at prefill,
+    `wkv_b`) stay dense and run `anemm`, every other matmul the form's
+    kernel, launched exactly as the forwards imply."""
+    kernel = FORM_KERNEL[form]
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    out = serve.run(serve_argv(cfg, 1, form, lens=MLA_LENS), cfg=cfg)
+    launches = native.launch_counts()
+    graphs = graph_counts(f"mla {form}", out, NAMED_RECORDS)
+    tokens = out["tokens"]
+    if tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"mla {form} tokens out of the vocab")
+    if set(out["routes"]) != {("anemm", "cuda"), (kernel, "cuda")}:
+        raise AssertionError(f"mla {form} routes {out['routes']}")
+    recs = out["records"]
+    decode_key = recs[-1].key
+    n_decode = sum(r.key == decode_key for r in recs)
+    n_prefill = sum(r.key not in NAMED_RECORDS and r.key != decode_key for r in recs)
+    dense = cfg.n_layers * (n_prefill + n_decode) + cfg.n_layers * n_prefill
+    want = {k: 0 for k in launches}
+    want.update({"anemm": dense, kernel: anemm_launches(cfg, n_prefill, n_decode) - dense})
+    if launches != want:
+        raise AssertionError(f"mla {form} launches {launches}, expected {want}")
+    steps = [r.wall_s for r in recs if r.key == decode_key]
+    emit("mla_packed", config=cfg.name, weight_form=form, n_layers=cfg.n_layers,
+         prompt_lens=MLA_LENS, gen=SERVE_GEN, pack_s=out["pack_s"],
+         packed_leaves=out["weight_form_census"], tok_per_s=out["tok_per_s"],
+         wall_s=out["wall_s"], prefills=n_prefill, decode_steps=n_decode,
+         decode_median_ms=statistics.median(steps) * 1e3, tokens_sha256=digest(tokens),
+         launches=launches, **graphs, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del out
+
+
+def serve_mla(arch_tokens: np.ndarray) -> None:
+    """deepseek-v3-671b at 4 of 61 layers without the MTP module
+    (`mla_config`): a continuous serve of MLA_LENS (one prefill bucket)
+    whose params are then written in the reference's layout and served back
+    through `--ckpt` (`serve_mla_ckpt`); spec with the shrink drafter (one
+    dense MLA layer), chain and two branches, on the same prompts
+    (`serve_spec`: the continuous streams, exact launches, the drafter
+    rejects, so the latent cache rolls back); `--prefill-chunk 64` on the
+    serve phase's prompts against the archs phase's streams (`arch_tokens`,
+    served with the MTP module) except at near ties; the prefix pool
+    (`prefix_serves`: pooled = pool-less, `c_kv` / `k_rope` paged); and an
+    int4_palette serve (`serve_mla_packed`)."""
+    cfg, reduced = mla_config()
+    want, params = serve_arch(MLA_ARCH, MLA_LENS, record="mla_continuous", cut=(cfg, reduced),
+                              keep_params=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="mla_ckpt_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        written = {"bytes": write_reference_checkpoint(params, ckpt, step=7)}
+        written["write_s"] = time.perf_counter() - t0
+        del params
+        serve_mla_ckpt(cfg, reduced, ckpt, want, written)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for branches in (1, 2):
+        serve_spec(cfg, "shrink", branches, want, lens=MLA_LENS, rounds=1)
+    serve_recurrent_chunked(cfg, arch_tokens, record="mla_chunked")
+    prefix_serves(cfg)
+    serve_mla_packed(cfg)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,11 @@ an SSM mixer `{"w_z", "w_x", "w_b", "w_c", "w_dt", "out_proj", "conv_x_w",
 "conv_x_b", "conv_bc_w", "conv_bc_b", "dt_bias", "a_log", "d_skip",
 "norm_scale"}` (an SSM layer has `ln1` only); every leaf keeps its
 reference dtype: `lam`, `dt_bias`, `a_log`, `d_skip` and `norm_scale` in
-fp32, the projections and the conv banks in the model's dtype.
+fp32, the projections and the conv banks in the model's dtype. An MLA
+mixer (deepseek-v3-671b) is `{"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
+"wkv_b", "wo"}` (the norms fp32, `wq_b` / `wkv_b` / `wo` 3-D), and a config
+with `mtp_depth` adds `mtp: {"proj", "ln_h", "ln_e", "layer"}`, `layer` one
+unstacked layer (no leading layer axis).
 
 bfloat16 leaves arrive with numpy's extension dtype named "bfloat16"; they
 are reinterpreted bit for bit, so no value changes on the way in. A shrink

@@ -4,18 +4,19 @@ tests instantiate (after `src/repro/configs/__init__.py`).
 
 Registered: the architectures the port serves — the dense GQA decoders
 (tinyllama-1.1b, granite-8b, phi4-mini-3.8b, command-r-35b, chameleon-34b
-with QK-norm), the one-device MoE (dbrx-132b), the encoder-decoder
-(whisper-small), the SSM (mamba2-1.3b) and the RG-LRU hybrid with
-sliding-window MQA (recurrentgemma-9b) — in the reference's order, and,
-outside `ARCH_NAMES` as in the reference, the paper's own workload config
-`ane-paper` (float16). MLA (deepseek-v3-671b) joins when it is ported.
+with QK-norm), the one-device MoEs (dbrx-132b, and deepseek-v3-671b with
+MLA's latent cache and its multi-token-prediction module), the
+encoder-decoder (whisper-small), the SSM (mamba2-1.3b) and the RG-LRU hybrid
+with sliding-window MQA (recurrentgemma-9b) — every architecture of the
+reference, in its order — and, outside `ARCH_NAMES` as in the reference, the
+paper's own workload config `ane-paper` (float16).
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import (ane_paper, chameleon_34b, command_r_35b, dbrx_132b,
-                                 granite_8b, mamba2_1_3b, phi4_mini_3_8b, recurrentgemma_9b,
-                                 tinyllama_1_1b, whisper_small)
+                                 deepseek_v3_671b, granite_8b, mamba2_1_3b, phi4_mini_3_8b,
+                                 recurrentgemma_9b, tinyllama_1_1b, whisper_small)
 from repro_torch.configs.base import ModelConfig, smoke
 
 _MODULES = {
@@ -24,6 +25,7 @@ _MODULES = {
     "phi4-mini-3.8b": phi4_mini_3_8b,
     "tinyllama-1.1b": tinyllama_1_1b,
     "command-r-35b": command_r_35b,
+    "deepseek-v3-671b": deepseek_v3_671b,
     "dbrx-132b": dbrx_132b,
     "whisper-small": whisper_small,
     "mamba2-1.3b": mamba2_1_3b,

@@ -1072,10 +1072,11 @@ class SLOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
-    """`spec` schedule knobs: the drafter and the window depth (a distilled
-    drafter's checkpoint waits for the checkpoint reader)."""
+    """`spec` schedule knobs: the drafter (`draft_ckpt`: a shrink drafter's
+    checkpoint directory) and the window depth."""
     draft_depth: int = 4
     draft: str = "shrink"
+    draft_ckpt: str | None = None
     draft_branches: int = 1
     drafter: Any = None           # a prebuilt Drafter overrides `draft`
     max_in_flight: int = 2
@@ -1160,7 +1161,7 @@ class ServeConfig:
             kw.update(slo_ms=self.slo.slo_ms, max_in_flight=self.slo.max_in_flight)
         if self.spec is not None:
             sp = self.spec
-            kw.update(draft_depth=sp.draft_depth, draft=sp.draft,
+            kw.update(draft_depth=sp.draft_depth, draft=sp.draft, draft_ckpt=sp.draft_ckpt,
                       draft_branches=sp.draft_branches, max_in_flight=sp.max_in_flight)
             if sp.drafter is not None:
                 kw["drafter"] = sp.drafter

@@ -10,6 +10,8 @@
         --batch 2 --prompt-len 17 --gen 4 --requests 2 --prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --schedule slo --sampling categorical --prefill-chunk 8 --gen 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+        --smoke --device cpu --ckpt CKPT_DIR --schedule spec --draft-ckpt DRAFT_DIR
 
 After `src/repro/launch/serve.py:119-419`. The model is built on the chosen
 device with a `KernelDispatcher`: on `--device cuda` (the default) every
@@ -22,9 +24,14 @@ on its first dispatch and replayed after; the report gives the capture time
 (`compile_s`, left out of tok/s as the reference leaves out its compiles)
 and the graphs captured and replayed. On the CPU programs run eagerly.
 
-Weights are random, drawn from a `torch.Generator` seeded with `--seed`;
-prompts are drawn with numpy from the same seed, as the reference draws
-them; an encoder-decoder (`--arch whisper-small`) then draws one log-mel
+Weights are random, drawn from a `torch.Generator` seeded with `--seed`, or
+read from a checkpoint directory in the reference's layout (`--ckpt DIR`,
+its latest committed step, restored into the drawn tree before any packing:
+`checkpoint.CheckpointReader`); `--draft-ckpt DIR` (spec only, with
+`--draft shrink`) reads the shrink drafter's weights likewise, its
+metadata's vocab and d_model checked before any array loads. Prompts are
+drawn with numpy from the same seed, as the reference draws them; an
+encoder-decoder (`--arch whisper-small`) then draws one log-mel
 frame array per request (`cfg.frame_shape`, float32 normals) from the same
 generator, right after the prompts, as the reference does, and every prompt
 must reach a prefill bucket (8 or more tokens). `--weight-form
@@ -64,9 +71,10 @@ n_layers=...)`), with no CLI flag.
 
 `--arch` takes every registered architecture and `ane-paper`, the paper's
 own float16 workload config (as the reference offers it); MoE configs
-(dbrx-132b) serve every expert on every token on one device; the
-recurrent configs (recurrentgemma-9b, mamba2-1.3b) carry their state
-through every schedule, the prefix pool and chunked prefill.
+(dbrx-132b, deepseek-v3-671b) serve every expert on every token on one
+device; deepseek-v3-671b's MLA layers carry their latent cache, and the
+recurrent configs (recurrentgemma-9b, mamba2-1.3b) their state, through
+every schedule, the prefix pool and chunked prefill.
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.checkpoint import CheckpointReader
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream,
                                        KernelDispatcher, ProgramCache)
 from repro_torch.kernels import native
@@ -122,6 +131,10 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None,
                     help="spec only: shrink = a one-layer draft model of the "
                          "target's widths (random weights); self = the target "
                          "itself (every proposal accepted)")
+    ap.add_argument("--draft-ckpt", default="",
+                    help="spec only: a checkpoint directory (the reference's layout) with "
+                         "the shrink drafter's weights; a vocab or width mismatch is "
+                         "refused before any array loads")
     ap.add_argument("--draft-branches", type=int, default=1,
                     help="spec only: sibling draft chains per lane (tree "
                          "verification, branching on the drafter's top-N)")
@@ -151,6 +164,10 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None,
     ap.add_argument("--weight-form", default="fp16", choices=WEIGHT_FORMS,
                     help="stored weight form: fp16 = dense (anemm); int4_palette / "
                          "sparse = packed after init (palette / sparse kernels)")
+    ap.add_argument("--ckpt", default="",
+                    help="load the target's params from this checkpoint directory (the "
+                         "reference's layout, its latest committed step) instead of "
+                         "random init")
     ap.add_argument("--requests", type=int, default=1,
                     help="identical request rounds; round 2+ must hit the "
                          "program cache")
@@ -176,6 +193,10 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None,
     dispatcher = KernelDispatcher()
     model = build_model(cfg, dispatcher, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    ckpt_step = None
+    if args.ckpt:
+        params, ckpt_step = CheckpointReader(args.ckpt).restore(params)
+        print(f"loaded target params from {args.ckpt} (step {ckpt_step})")
     pack_s = 0.0
     if args.weight_form != "fp16":
         t0 = time.perf_counter()
@@ -222,6 +243,7 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None,
         slo=SLOConfig(slo_ms=args.slo_ms, max_in_flight=args.max_in_flight)
         if args.schedule == "slo" else None,
         spec=SpecConfig(draft_depth=args.draft_depth, draft=args.draft,
+                        draft_ckpt=args.draft_ckpt or None,
                         draft_branches=args.draft_branches,
                         max_in_flight=args.max_in_flight)
         if args.schedule == "spec" else None,
@@ -260,6 +282,7 @@ def run(argv=None, *, prompts: list[list[np.ndarray]] | None = None,
         "weight_form": args.weight_form,
         "build_s": build_s,
         "pack_s": pack_s,
+        "ckpt_step": ckpt_step,
         "weight_form_census": dict(census),
         "wall_s": wall,
         "compile_s": cstats.compile_seconds,

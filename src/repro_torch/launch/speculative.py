@@ -17,8 +17,11 @@ same under every schedule, whatever the drafter proposed.
   * **Drafter** — `draft_of(cfg)` depth-prunes a config (same widths and
     vocab); `Drafter.shrink` builds it through `build_model` on the target's
     dispatcher, with random weights from a generator seeded `seed + 1` (the
-    reference uses `PRNGKey(seed + 1)`) or with given params (e.g. the
-    reference's, bridged through `bridge.params_from_numpy`);
+    reference uses `PRNGKey(seed + 1)`), with given params (e.g. the
+    reference's, bridged through `bridge.params_from_numpy`), or from a
+    checkpoint directory (`ckpt=`, reference :143-178: its metadata's vocab
+    and d_model checked before any array loads, a packed template where the
+    metadata names a packed weight form, the tree validated after);
     `Drafter.self_draft` drafts with the target itself, its own caches apart.
   * **Tree windows** (`draft_branches > 1`) — the draft dispatch branches at
     the window root on the drafter's top-N of its first row (gumbel-perturbed
@@ -48,8 +51,6 @@ same under every schedule, whatever the drafter proposed.
     draft's outputs are copied into the verify graph's static inputs, and
     the rollback's index writes and the threefry / gumbel arithmetic of a
     categorical window are device ops, captured with the rest.
-
-Loading a distilled drafter waits for the checkpoint reader (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import CheckpointReader
 from repro_torch.core.dispatch import AsyncExecutionStream
 from repro_torch.kernels.specdec import ops as specdec_ops
 from repro_torch.launch.scheduler import (SCHEDULES, TIME_MERGE_LEAVES, ContinuousSchedule,
@@ -116,6 +118,39 @@ def _validate_draft_params(model, dcfg, params) -> None:
                              f"draft config {dcfg.name!r} wants {tuple(leaf.shape)}")
 
 
+def _load_draft_checkpoint(model, dcfg, cfg, path: str):
+    """The drafter's params from a checkpoint directory (reference
+    :143-178): the metadata's vocab and d_model checked against the target
+    before any array loads; a checkpoint of a packed weight form restores
+    into a template packed in that form, so the tags round-trip; a dense
+    tree is validated after."""
+    from repro_torch.optim.compression import compress_model_params
+
+    reader = CheckpointReader(path)
+    if reader.latest_step() is None:
+        raise FileNotFoundError(f"no committed drafter checkpoint in {path!r}")
+    meta = reader.metadata() or {}
+    for key, want in (("vocab", cfg.vocab), ("d_model", cfg.d_model)):
+        got = meta.get(key)
+        if got is not None and int(got) != int(want):
+            raise ValueError(
+                f"drafter checkpoint {path!r} was distilled with {key}={got}, but the "
+                f"target {cfg.name!r} serves {key}={want}; speculative decoding shares the "
+                f"tokenizer and widths — re-distill against this target")
+    form = meta.get("weight_form", "fp16")
+    template = model.init(torch.Generator(device=model.device).manual_seed(0))
+    if form != "fp16":
+        template = compress_model_params(template, form)
+    try:
+        params, _ = reader.restore(template)
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"drafter checkpoint {path!r} does not restore into the "
+                         f"{dcfg.name!r} param tree: {e}") from None
+    if form == "fp16":
+        _validate_draft_params(model, dcfg, params)
+    return params
+
+
 @dataclasses.dataclass
 class Drafter:
     """A draft model and its params, served beside the target."""
@@ -128,13 +163,18 @@ class Drafter:
 
     @classmethod
     def shrink(cls, cfg, *, dispatcher=None, device: str | torch.device = "cuda",
-               seed: int = 0, params=None) -> "Drafter":
+               seed: int = 0, params=None, ckpt: str | None = None) -> "Drafter":
         """The depth-pruned drafter: random weights from a generator seeded
-        `seed + 1`, or `params` (validated against `draft_of(cfg)`)."""
+        `seed + 1`, `params` (validated against `draft_of(cfg)`), or the
+        params of the checkpoint directory `ckpt`."""
+        if params is not None and ckpt is not None:
+            raise ValueError("pass params= or ckpt=, not both")
         dcfg = draft_of(cfg)
         model = build_model(dcfg, dispatcher, device=device)
-        trained = params is not None
-        if trained:
+        trained = params is not None or ckpt is not None
+        if ckpt is not None:
+            params = _load_draft_checkpoint(model, dcfg, cfg, ckpt)
+        elif params is not None:
             _validate_draft_params(model, dcfg, params)
         else:
             params = model.init(torch.Generator(device=model.device).manual_seed(seed + 1))
@@ -254,7 +294,7 @@ class SpeculativeSchedule(ContinuousSchedule):
     def __init__(self, model, params, cfg, *, n_slots: int, max_len: int,
                  draft_depth: int = 4, draft: str = "shrink",
                  drafter: Drafter | None = None, draft_branches: int = 1,
-                 max_in_flight: int = MAX_IN_FLIGHT,
+                 draft_ckpt: str | None = None, max_in_flight: int = MAX_IN_FLIGHT,
                  stream: AsyncExecutionStream | None = None, **kw) -> None:
         if kw.pop("prefix_cache", False):
             raise ValueError(
@@ -282,10 +322,14 @@ class SpeculativeSchedule(ContinuousSchedule):
             if draft not in DRAFT_KINDS:
                 raise ValueError(f"draft {draft!r} not in {DRAFT_KINDS}")
             if draft == "self":
+                if draft_ckpt:
+                    raise ValueError(
+                        "draft_ckpt loads a distilled shrink drafter; the self drafter IS "
+                        "the target — drop --draft-ckpt or use --draft shrink")
                 drafter = Drafter.self_draft(model, params, cfg)
             else:
                 drafter = Drafter.shrink(cfg, dispatcher=model.dispatcher,
-                                         device=model.device)
+                                         device=model.device, ckpt=draft_ckpt or None)
         if drafter.cfg.vocab != cfg.vocab:
             raise ValueError(f"drafter vocab {drafter.cfg.vocab} != target vocab "
                              f"{cfg.vocab}; speculative decoding shares the tokenizer")

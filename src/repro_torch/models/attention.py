@@ -1,7 +1,8 @@
-"""GQA attention with a KV cache: prefill through flash (or, for a
-sliding-window layer, the blocked plain attention), decode one token.
+"""Attention with a KV cache: GQA (prefill through flash or, for a
+sliding-window layer, the blocked plain attention; decode one token) and
+MLA's latent cache (DeepSeek-V3).
 
-After `src/repro/models/attention.py`, the non-MLA path:
+After `src/repro/models/attention.py`. The GQA path:
 `init_attention` (:40, with QK-norm's `q_scale` / `k_scale` at :72),
 `init_kv_cache` (:268, a ring of `min(max_len, attn_window)` slots for a
 sliding-window layer), `_qkv` (:285, QK-norm before RoPE),
@@ -15,20 +16,35 @@ of C tokens a lane, the forward of `chunked_attention` (:233),
 which is the flash route's plain version, and the encoder-decoder's
 `cross_attention_forward` / `encode_cross_kv` (:518-542).
 
+MLA (:439-515): the MLA branches of `init_attention` (:44-60) and
+`init_kv_cache` (:272-277), `_mla_qkv_latent` (:443) and `_mla_forward`
+(:457), to which `attention_forward` branches first, so an MLA layer never
+reaches the flash or decode routes. Prefill expands K/V from the latent
+through `wkv_b` and attends through the plain `chunked_attention`; decode
+and a prefill chunk append the latent `c_kv` and the shared `k_rope` to the
+cache and attend in the absorbed form, scores taken in latent space. Its
+projections are routed `linear`s (`wkv_b` at prefill only); the absorbed
+products are plain fp32 PyTorch outside any kernel, as the reference's
+einsums are, computed lane by lane: every product has the shape of one
+lane whatever the number of lanes, so a lane's bits do not depend on how
+many lanes run (a 16-row tree verify must equal 8-row decode).
+
 Caches keep the reference's layout, `{"k": (B, S, KV, dh), "v": ...,
-"pos": (B, S) int32}` with -1 marking an empty slot; position p lives at
-slot p % S, so a sliding-window ring wraps. Decode writes the new token
-into the cache in place: the reference's programs donate these buffers, so
-the port updates them where they lie instead of copying.
+"pos": (B, S) int32}` (MLA: `{"c_kv": (B, S, kv_lora), "k_rope": (B, S,
+rope), "pos"}`) with -1 marking an empty slot; position p lives at slot
+p % S, so a sliding-window ring wraps. Decode writes the new token into the
+cache in place: the reference's programs donate these buffers, so the port
+updates them where they lie instead of copying.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dispatched as dsp
-from repro_torch.models.layers import Params, apply_rope, normal, rms_head_norm
+from repro_torch.models.layers import Params, apply_rope, normal, rms_head_norm, row_sum
 
 NEG_INF = -1e30
 
@@ -37,7 +53,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
                    stack: tuple[int, ...] = (), cross: bool = False) -> Params:
     """The GQA projections; a `cross` attention (reference :40) takes the
     same ones (its queries from the decoder, keys and values from the
-    encoder output)."""
+    encoder output). An MLA config's self-attention takes MLA's."""
+    if cfg.use_mla and not cross:
+        return _init_mla(gen, cfg, dtype, stack)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     std = d ** -0.5
     p = {
@@ -126,12 +144,18 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     """One layer's cache (with `stack` leading dims for a layer group). A
     sliding-window layer keeps a ring of the window only."""
     size = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
+    pos = torch.full(stack + (batch, size), -1, dtype=torch.int32, device=device)
+    if cfg.use_mla:
+        return {"c_kv": torch.zeros(stack + (batch, size, cfg.kv_lora_rank), dtype=dtype,
+                                    device=device),
+                "k_rope": torch.zeros(stack + (batch, size, cfg.qk_rope_dim), dtype=dtype,
+                                      device=device),
+                "pos": pos}
     shape = stack + (batch, size, cfg.n_kv_heads, cfg.d_head)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full(stack + (batch, size), -1, dtype=torch.int32,
-                          device=device),
+        "pos": pos,
     }
 
 
@@ -157,7 +181,10 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     place, then attend. One token a lane (S == 1, a decode step) goes
     through the decode route; a prefill chunk (S == C) attends each query up
     to its own position through the plain `_decode_attention`, as the
-    reference computes it outside any kernel."""
+    reference computes it outside any kernel. An MLA layer takes
+    `_mla_forward`."""
+    if cfg.use_mla:
+        return _mla_forward(cfg, p, x, positions, mode=mode, cache=cache)
     q, k, v = _qkv(cfg, p, x, positions)
     disp = dsp.active_dispatcher()
     window = cfg.attn_window
@@ -231,6 +258,113 @@ def _decode_attention(q, cache, positions, window: int | None = None):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgc,bckd->bqkgd", w, cache["v"].float())
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): latent cache, expanded prefill, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def _init_mla(gen: torch.Generator, cfg: ModelConfig, dtype,
+              stack: tuple[int, ...]) -> Params:
+    """MLA's projections (reference :44-60): the query through a rank
+    `q_lora` bottleneck, K/V through the latent of rank `kv_lora` plus one
+    shared RoPE key; fp32 norms of both latents."""
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dev = gen.device
+    return {
+        "wq_a": normal(gen, stack + (d, ql), dtype, d ** -0.5),
+        "q_norm": torch.ones(stack + (ql,), dtype=torch.float32, device=dev),
+        "wq_b": normal(gen, stack + (ql, h, cfg.qk_nope_dim + cfg.qk_rope_dim), dtype,
+                       ql ** -0.5),
+        "wkv_a": normal(gen, stack + (d, kl + cfg.qk_rope_dim), dtype, d ** -0.5),
+        "kv_norm": torch.ones(stack + (kl,), dtype=torch.float32, device=dev),
+        "wkv_b": normal(gen, stack + (kl, h, cfg.qk_nope_dim + cfg.v_head_dim), dtype,
+                        kl ** -0.5),
+        "wo": normal(gen, stack + (h, cfg.v_head_dim, d), dtype,
+                     (h * cfg.v_head_dim) ** -0.5),
+    }
+
+
+def latent_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """`rms_head_norm` of a latent (reference :446, :451) with the mean of
+    squares taken by `row_sum`'s pairwise tree, so each row's bits are the
+    same whatever the number of rows."""
+    x32 = x.float()
+    ms = row_sum(x32 * x32) / x32.shape[-1]
+    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+def _mla_qkv_latent(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kv_lora), k_rope
+    (B,S,rope)) (reference :443-454): `wq_a`, the norm, `wq_b`; RoPE on the
+    query's rope half and on the shared key through a singleton head axis."""
+    nope, kl = cfg.qk_nope_dim, cfg.kv_lora_rank
+    cq = latent_norm(dsp.linear(x, p["wq_a"]), p["q_norm"])
+    q = dsp.linear(cq, p["wq_b"])                                # (B,S,H,nope+rope)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv_full = dsp.linear(x, p["wkv_a"])                         # (B,S,kv_lora+rope)
+    c_kv = latent_norm(ckv_full[..., :kl], p["kv_norm"])
+    k_rope = apply_rope(ckv_full[..., None, kl:], positions, cfg.rope_theta)[..., 0, :]
+    return q[..., :nope], q_rope, c_kv, k_rope
+
+
+def _absorbed_lane(q_lat, q_rope, c_kv, k_rope, cpos, qpos, scale: float) -> torch.Tensor:
+    """One lane's absorbed attention (reference :487-512) in fp32, heads
+    leading: scores `(q_lat·c_kv + q_rope·k_rope)·scale` (H, S, C) over the
+    cache's C slots, each of the S queries masked to the valid slots up to
+    its own position, the softmax, and the context in latent space
+    (H, S, kv_lora)."""
+    c32 = c_kv.float()
+    sc = (q_lat.float() @ c32.T + q_rope.float() @ k_rope.float().T) * scale
+    valid = (cpos[None, :] >= 0) & (cpos[None, :] <= qpos[:, None])     # (S, C)
+    sc = sc.masked_fill(~valid, NEG_INF)
+    return torch.softmax(sc, dim=-1) @ c32
+
+
+def _mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                 mode: str, cache: Params | None) -> tuple[torch.Tensor, Params | None]:
+    """prefill: K and V expanded from the latent through `wkv_b`, the shared
+    `k_rope` broadcast over heads, V zero-padded to the query-key width, the
+    plain causal `chunked_attention` at scale (nope+rope)^-0.5, V's width
+    sliced back; the cache keeps the latent `{c_kv, k_rope, pos}`. decode
+    (S = 1) and a prefill chunk (S = C): the S latents appended in place,
+    then the absorbed form (reference :484-512): `q_lat = q_nope · w_k`
+    rounded to the activation dtype (the reference's `einsum32`), the
+    scores in fp32 from the cache's stored dtype, the context rounded to
+    the activation dtype, then `· w_v` rounded likewise. `wo` contracts
+    (H, v) either way."""
+    b, s, _ = x.shape
+    h, nope, dt = cfg.n_heads, cfg.qk_nope_dim, x.dtype
+    scale = (nope + cfg.qk_rope_dim) ** -0.5
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, p, x, positions)
+    if mode == "prefill":
+        kv = dsp.linear(c_kv, p["wkv_b"])                        # (B,S,H,nope+v)
+        k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        v = F.pad(kv[..., nope:], (0, k.shape[-1] - cfg.v_head_dim))
+        out = chunked_attention(q, k, v, causal=True, scale=scale)[..., :cfg.v_head_dim]
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope, "pos": positions}
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("decode: the tokens attend a cache")
+        new_cache = _append_cache(cache, {"c_kv": c_kv, "k_rope": k_rope}, positions)
+        # the two halves of wkv_b in fp32, heads leading: (H, nope, L), (H, L, v)
+        w_k = p["wkv_b"][..., :nope].permute(1, 2, 0).float().contiguous()
+        w_v = p["wkv_b"][..., nope:].permute(1, 0, 2).float().contiguous()
+        q_nope, q_rope = q_nope.float().transpose(1, 2), q_rope.transpose(1, 2)
+        lanes = []
+        for i in range(b):                                       # (H, S, ...) a lane
+            q_lat = (q_nope[i] @ w_k).to(dt)
+            ctx = _absorbed_lane(q_lat, q_rope[i], new_cache["c_kv"][i],
+                                 new_cache["k_rope"][i], new_cache["pos"][i], positions[i],
+                                 scale).to(dt)
+            lanes.append((ctx.float() @ w_v).to(dt).transpose(0, 1))
+        out = torch.stack(lanes)                                 # (B,S,H,v)
+    else:
+        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+    return dsp.linear(out, p["wo"], n_contract=2), new_cache
 
 
 # ---------------------------------------------------------------------------

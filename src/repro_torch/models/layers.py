@@ -27,9 +27,10 @@ Params = dict[str, Any]
 
 def normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
     """`jax.random.normal(key, shape, dtype) * std`: a standard normal draw
-    in `dtype`, scaled in `dtype`."""
+    in `dtype`, scaled in `dtype` (in place: the same bits as `* std`, and
+    one copy fewer alive at once, which a 3.8 B-element expert bank needs)."""
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return x.to(dtype) * std
+    return x.to(dtype).mul_(std)
 
 
 # ---------------------------------------------------------------------------

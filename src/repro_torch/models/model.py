@@ -1,5 +1,5 @@
 """Model facade: init / prefill / decode on the port's decoders (dense,
-MoE, the RG-LRU hybrid, the SSM) and encoder-decoder.
+MoE, MLA, the RG-LRU hybrid, the SSM) and encoder-decoder.
 
 After `src/repro/models/model.py` (`Model` :42, `init` :68, `_backbone` :97,
 `forward` :119, `init_cache` :191, `prefill` :206, `decode_step` :216,
@@ -22,8 +22,13 @@ cross K/V and ignores frames. A decoder's caches are its stack's
 `min(max_len, attn_window)` slots for a sliding-window layer), and for
 recurrent layers state with no time axis (the RG-LRU's `h` / `conv`, the
 SSM's `state` / `conv_x` / `conv_bc`), which decode and a prefill chunk
-update in place like the K/V. Training entry points come with the training
-slice.
+update in place like the K/V; an MLA layer caches its latent (`c_kv`,
+`k_rope`, `pos`). A config with `mtp_depth` (deepseek-v3-671b) draws the
+multi-token-prediction module's parameters as the reference does
+(`init`, reference :73-85): `mtp/proj` (2d, d), the norms `ln_h` / `ln_e` and
+`mtp/layer`, one layer of the last layer's signature with no stack axis. No
+served program reads them: the reference reads them only in the training
+loss (`_mtp_loss`, :160-189), which comes with the training entry points.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from repro_torch.models import dispatched as dsp
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.layers import (Params, apply_norm, embed_tokens, init_embed,
-                                       init_norm, logits as logits_fn)
+                                       init_norm, logits as logits_fn, normal)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -57,7 +62,8 @@ class Model:
 
     def init(self, gen: torch.Generator) -> Params:
         """Random parameters in the reference's tree layout, drawn from
-        `gen` (a generator on the model's device)."""
+        `gen` (a generator on the model's device), the MTP module's
+        included."""
         cfg = self.cfg
         params = {"embed": init_embed(gen, cfg, self.dtype),
                   "final_ln": init_norm(cfg, cfg.d_model, self.device)}
@@ -65,6 +71,15 @@ class Model:
             params["encdec"] = encdec_lib.init_encdec_stacks(gen, cfg, self.dtype)
         else:
             params["layers"] = tf_lib.init_stack(gen, cfg, self.dtype)
+        if cfg.mtp_depth:
+            d = cfg.d_model
+            sig = tf_lib.layer_signature(cfg, cfg.n_layers - 1)
+            params["mtp"] = {
+                "proj": normal(gen, (2 * d, d), self.dtype, (2 * d) ** -0.5),
+                "ln_h": init_norm(cfg, d, self.device),
+                "ln_e": init_norm(cfg, d, self.device),
+                "layer": tf_lib.init_layer(gen, cfg, sig, self.dtype, None),
+            }
         return params
 
     def _backbone(self, params: Params, x: torch.Tensor, positions: torch.Tensor, *,

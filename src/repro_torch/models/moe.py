@@ -8,7 +8,9 @@ their renormalised gates. Exact, no capacity drops. The expert-parallel
 path (`moe_ep`) waits for the mesh.
 
 Every expert matmul is a routed `linear`, one bank at a time (a packed
-bank sliced with `DispatchedWeight.index`). The router runs outside any
+bank sliced with `DispatchedWeight.index`); each token's k outputs are
+picked a group of `EXPERT_GROUP` banks at a time, so no more than one
+group's outputs are ever stacked. The router runs outside any
 kernel, as in the reference, and every step of it is computed per row in an
 order that does not depend on how many rows run: the fp32 product as a
 pairwise tree of elementwise adds (`layers.row_sum`; no library GEMM, whose
@@ -48,11 +50,21 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
+# The router's (rows, E, d) fp32 products are formed this many bytes at a
+# time at most (deepseek's 256 experts of 7,168 over a 512-token prefill
+# would be 3.8 GB, held by the prefill's captured graph)
+ROUTER_CHUNK_BYTES = 256 << 20
+
+
 def router_logits(x32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(T, d) fp32 @ (d, E) fp32 -> (T, E): the products summed over d by
     `row_sum`'s pairwise tree, so every row's bits are the same whatever T
-    is."""
-    return row_sum(x32[:, None, :] * w.T[None])[..., 0]   # (T, E, d) -> (T, E)
+    is; the rows go in chunks of `ROUTER_CHUNK_BYTES` of products, which
+    changes no row's bits."""
+    wt = w.T[None]
+    rows = max(1, ROUTER_CHUNK_BYTES // (wt[0].numel() * 4))
+    return torch.cat([row_sum(x32[i:i + rows, None, :] * wt)[..., 0]   # (rows, E, d)
+                      for i in range(0, x32.shape[0], rows)])
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -81,29 +93,44 @@ def _bank(w, e: int):
     return w.index(e) if isinstance(w, dsp.DispatchedWeight) else w[e]
 
 
-def expert_ffn(cfg: ModelConfig, wg, wu, wd, x: torch.Tensor) -> torch.Tensor:
-    """x (T, d) through every expert bank, one bank at a time: (E, T, d).
-    The reference broadcasts the tokens to (E, T, d) first; each expert
-    reads the same rows."""
+# Experts run in groups of this many; a group's outputs (G, T, d) are the
+# only stacked expert outputs alive at a time (deepseek's 256 banks over a
+# 512-token prefill would stack 1.9 GB in bf16).
+EXPERT_GROUP = 32
+
+
+def expert_ffn(cfg: ModelConfig, wg, wu, wd, x: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """x (T, d) through every expert bank, one bank at a time, and each
+    token's k routed outputs picked as the banks of a group finish:
+    (T, k, d), slot j the output of expert `idx[:, j]`. The reference
+    broadcasts the tokens to (E, T, d) and stacks every expert's output;
+    each expert reads the same rows and the picks are the same values."""
     act = gelu if cfg.act == "gelu" else F.silu
-    outs = []
-    for e in range(cfg.n_experts):
-        g = act(dsp.linear(x, _bank(wg, e)))
-        u = dsp.linear(x, _bank(wu, e))
-        outs.append(dsp.linear((g * u).to(x.dtype), _bank(wd, e)))
-    return torch.stack(outs)
+    t = torch.arange(x.shape[0], device=x.device)[:, None]
+    picked = None
+    for e0 in range(0, cfg.n_experts, EXPERT_GROUP):
+        outs = []
+        for e in range(e0, min(e0 + EXPERT_GROUP, cfg.n_experts)):
+            g = act(dsp.linear(x, _bank(wg, e)))
+            u = dsp.linear(x, _bank(wu, e))
+            outs.append(dsp.linear((g * u).to(x.dtype), _bank(wd, e)))
+        rel = idx - e0
+        hit = (rel >= 0) & (rel < len(outs))
+        got = torch.stack(outs)[rel.clamp(0, len(outs) - 1), t]      # (T, k, d)
+        picked = got if picked is None else torch.where(hit[..., None], got, picked)
+    return picked
 
 
-def combine(ye: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def combine(picked: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     """The reference's `einsum("tke,etd,tk->td", one_hot(idx), ye, gates)`
-    with the gates in ye's dtype: the one-hot picks each token's k expert
-    outputs, summed in k order in fp32 and rounded once to ye's dtype."""
-    t = torch.arange(ye.shape[1], device=ye.device)
-    g = gates.to(ye.dtype).float()
-    acc = g[:, 0, None] * ye[idx[:, 0], t].float()
-    for j in range(1, idx.shape[1]):
-        acc = acc + g[:, j, None] * ye[idx[:, j], t].float()
-    return acc.to(ye.dtype)
+    with the gates in the outputs' dtype: each token's k picked expert
+    outputs (T, k, d), summed in k order in fp32 and rounded once."""
+    g = gates.to(picked.dtype).float()
+    acc = g[:, 0, None] * picked[:, 0].float()
+    for j in range(1, picked.shape[1]):
+        acc = acc + g[:, j, None] * picked[:, j].float()
+    return acc.to(picked.dtype)
 
 
 def moe_dense(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,8 +139,7 @@ def moe_dense(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tenso
     b, s, d = x.shape
     xt = x.reshape(-1, d)
     gates, idx, aux = route(cfg, p["router"], xt)
-    ye = expert_ffn(cfg, p["wg"], p["wu"], p["wd"], xt)             # (E, T, d)
-    out = combine(ye, gates, idx).reshape(b, s, d)
+    out = combine(expert_ffn(cfg, p["wg"], p["wu"], p["wd"], xt, idx), gates).reshape(b, s, d)
     if "shared" in p:
         out = out + apply_mlp(cfg, p["shared"], x).reshape(b, s, d)
     return out, aux

@@ -8,7 +8,8 @@ and their MoE branch (:50-51, :88-91), `init_layer_cache` (:97-104),
 periods, then its remaining layers one by one; otherwise runs of equal
 `layer_signature`, so leading dense layers before MoE ones form a group of
 their own) and `init_stack` / `init_stack_cache` / `apply_stack`
-(:136-239). Parameters and caches keep the reference's stacked layout — a
+(:136-239); an MLA layer's mixer and cache are MLA's (`models.attention`).
+Parameters and caches keep the reference's stacked layout — a
 list of groups, each `{"sub0": {...}, "sub1": ...}` (one entry a layer of
 the group's unit) with a leading unit axis — so both compare leaf for leaf
 with the reference's trees. A Python loop over a group's units replaces
@@ -36,27 +37,26 @@ def layer_signature(cfg: ModelConfig, idx: int) -> tuple[str, bool]:
     return (cfg.block_kind(idx), cfg.layer_is_moe(idx))
 
 
+FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves GQA decoders (dense, QK-norm, sliding-window,
-    one-device MoE), the RG-LRU hybrid, the SSM and the encoder-decoder so
-    far; refuse anything else loudly."""
-    unsupported = [name for name, on in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "encdec", "ssm",
-                                                       "hybrid")),
-        ("MLA", cfg.use_mla),
-        ("mtp_depth", cfg.mtp_depth > 0),
-    ) if on]
-    if unsupported:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(unsupported)}")
+    """The port serves every family of the reference: GQA and MLA decoders
+    (dense, QK-norm, sliding-window, one-device MoE, an MTP module's
+    parameters), the RG-LRU hybrid, the SSM and the encoder-decoder; refuse
+    any other family loudly."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: not ported: family {cfg.family!r}")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dtype,
-               count: int) -> Params:
-    """`count` stacked layers of kind `sig`: a norm and the SSM mixer, or a
-    norm, the attention or RG-LRU mixer, a norm and the MLP (the MoE block
-    where `sig` says so)."""
+               count: int | None) -> Params:
+    """`count` stacked layers of kind `sig` (`count=None`: one layer with no
+    stack axis, as the reference's `init_layer` returns it, :37): a norm and
+    the SSM mixer, or a norm, the attention or RG-LRU mixer, a norm and the
+    MLP (the MoE block where `sig` says so)."""
     kind, is_moe = sig
-    stack, dev = (count,), gen.device
+    stack, dev = (() if count is None else (count,)), gen.device
     p: Params = {"ln1": init_norm(cfg, cfg.d_model, dev, stack)}
     if kind == "ssm":
         p["mix"] = ssm_lib.init_ssm(gen, cfg, dtype, stack)

@@ -26,18 +26,20 @@ def _is_packed(x: Any) -> bool:
 
 # Module names that give a leaf its matmul view (reference :54-58). The
 # attention test comes first: an attention "wo" contracts two dims, an MLP
-# "wo" one. MLA's "wq_a" / "wkv_a" and MTP's "mtp/proj" come with MLA.
+# "wo" one.
 _ATTN_CONTEXT = ("mix", "attn", "self_attn", "cross_attn")
-_MLP_CONTEXT = ("mlp", "moe", "shared")
+_MLP_CONTEXT = ("mlp", "moe", "shared", "mtp")
 
 
 def matmul_view(path: str) -> tuple[int, int] | None:
     """(n_contract, n_out) of the leaf at `path`, or None if it is not an
     eligible matmul weight (reference :63): the attention projections of a
     decoder, an encoder and both attentions of an encoder-decoder's decoder,
-    the MLPs (gated or plain), the MoE expert banks and shared MLP, and the
-    head. Leading dims beyond the view are stack dims (the layer axis, the
-    expert axis); the conv stem and the router stay dense."""
+    the MLPs (gated or plain), the MoE expert banks and shared MLP, MLA's
+    `wq_a` / `wkv_a`, the MTP module's `proj`, and the head. Leading dims
+    beyond the view are stack dims (the layer axis, the expert axis); the
+    conv stem and the router stay dense, and so do MLA's `wq_b` / `wkv_b`:
+    the absorbed decode slices `wkv_b`, which a packed form cannot do."""
     parts = path.split("/")
     name = parts[-1]
     in_attn = any(c in parts for c in _ATTN_CONTEXT)
@@ -45,9 +47,11 @@ def matmul_view(path: str) -> tuple[int, int] | None:
         return (1, 2)
     if in_attn and name == "wo":
         return (2, 1)
+    if in_attn and name in ("wq_a", "wkv_a"):
+        return (1, 1)
     if name in ("wi", "wg", "wu", "wd", "wo") and any(c in parts for c in _MLP_CONTEXT):
         return (1, 1)
-    if name == "unembed":
+    if name == "unembed" or (name == "proj" and "mtp" in parts):
         return (1, 1)
     return None
 

@@ -15,8 +15,10 @@ dtype, which the reference runs on the CPU too); the greedy continuous
 streams are token-exact against the reference's `ContinuousSchedule`, and
 the port's sequential streams equal them. Also: each init tree equals the
 reference's, command-r-35b's chunked prefill equals its unchunked one (the
-reference runs the same case, `tests/test_chunked_prefill.py:110`), and
-the features still to port are refused by name. JAX runs are memoised.
+reference runs the same case, `tests/test_chunked_prefill.py:110`), the
+features once refused by name (MLA, MTP heads beside each family) build and
+give the reference's logits, and an unknown family is refused. JAX runs are
+memoised.
 """
 
 import dataclasses
@@ -212,29 +214,51 @@ def _port_config(jcfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(jcfg))
 
 
-# Sliding windows, block patterns and the SSM / hybrid families are ported
-# (tests/test_torch_recurrent.py); each still refuses MTP heads, and MLA
-# stays refused by name.
-@pytest.mark.parametrize("cfg,feature", [
-    pytest.param(_port_config(jconfigs.get_smoke("deepseek-v3-671b")), "MLA", id="mla"),
-    pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), mtp_depth=1),
-                 "mtp_depth", id="mtp"),
+# The features this test once held refused by name (MLA, MTP heads, on their
+# own and beside sliding windows, block patterns, the SSM and the hybrid) are
+# ported; it keeps its name and its cases: each config builds, its init tree
+# is the reference's (the MTP module included) and its smoke prefill and
+# decode logits equal the reference's. Only an unknown family is refused.
+@pytest.mark.parametrize("cfg", [
+    pytest.param(_port_config(jconfigs.get_smoke("deepseek-v3-671b")), id="mla"),
+    pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), mtp_depth=1), id="mtp"),
     pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), attn_window=8,
-                                     mtp_depth=1),
-                 "mtp_depth", id="window"),
+                                     mtp_depth=1), id="window"),
     pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"),
                                      block_pattern=("attn", "attn"), mtp_depth=1),
-                 "mtp_depth", id="pattern"),
-    pytest.param(dataclasses.replace(configs.get_smoke("mamba2-1.3b"), use_mla=True),
-                 "MLA", id="ssm"),
+                 id="pattern"),
+    pytest.param(dataclasses.replace(configs.get_smoke("mamba2-1.3b"), use_mla=True), id="ssm"),
     pytest.param(dataclasses.replace(configs.get_smoke("recurrentgemma-9b"), mtp_depth=1),
-                 "mtp_depth", id="hybrid"),
+                 id="hybrid"),
+    pytest.param(dataclasses.replace(configs.get_smoke("granite-8b"), family="retnet"),
+                 id="unknown-family"),
 ])
-def test_unported_features_are_refused_by_name(cfg, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        build_model(cfg, device="cpu")
-    # without the refused feature the config builds
-    build_model(dataclasses.replace(cfg, use_mla=False, mtp_depth=0), device="cpu")
+def test_unported_features_are_refused_by_name(cfg):
+    if cfg.family == "retnet":
+        with pytest.raises(NotImplementedError, match="family 'retnet'"):
+            build_model(cfg, device="cpu")
+        return
+    jcfg = jconfigs.ModelConfig(**dataclasses.asdict(cfg))
+    jmodel = jbuild(jcfg)
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    want = [(p, tuple(x.shape)) for p, x in JModel.named_leaves(jparams)]
+    model = build_model(cfg, KernelDispatcher(), device="cpu")
+    own = model.init(torch.Generator().manual_seed(0))
+    assert [(p, tuple(x.shape)) for p, x in leaves_with_path(own)] == want
+    assert ("mtp" in own) == bool(cfg.mtp_depth)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    s = (cfg.attn_window or 8) + 4
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(B, s)).astype(np.int32)
+    jcaches, jlg = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(tokens)})
+    tcaches, tlg = model.prefill(tparams, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), *_tol("float32"))
+    jcaches = jmerge(jmodel.init_cache(B, s + 2), jcaches)
+    tcaches = merge_prefill_caches(model.init_cache(B, s + 2), tcaches)
+    tok = np.argmax(np.asarray(jlg)[:, -1, :cfg.vocab], -1).astype(np.int32)[:, None]
+    pos = np.full((B,), s, np.int32)
+    _, jdl = jax.jit(jmodel.decode_step)(jparams, jcaches, jnp.asarray(tok), jnp.asarray(pos))
+    _, tdl = model.decode_step(tparams, tcaches, torch.from_numpy(tok), torch.from_numpy(pos))
+    np.testing.assert_allclose(tdl.numpy(), np.asarray(jdl), *_tol("float32"))
 
 
 def test_cli_serves_ane_paper_and_refuses_a_foreign_cfg(capsys):

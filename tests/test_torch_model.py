@@ -208,7 +208,12 @@ def test_linear_outside_a_dispatcher_raises():
 
 
 def test_unported_configs_are_refused():
+    """Only a family the reference lacks is refused; MTP heads and sliding
+    windows, once refused here, are ported."""
     _, tcfg = _configs("float32")
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(tcfg, mtp_depth=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="family 'retnet'"):
+        build_model(dataclasses.replace(tcfg, family="retnet"), device="cpu")
+    params = build_model(dataclasses.replace(tcfg, mtp_depth=1), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert set(params["mtp"]) == {"proj", "ln_h", "ln_e", "layer"}
     build_model(dataclasses.replace(tcfg, attn_window=8), device="cpu")   # ported

@@ -16,8 +16,8 @@ window (positions exact, K/V within 2e-5), prefill and decode logits in
 fp32 and bf16 at 4x the `anemm` registry tolerance (recurrentgemma's prompt
 of 40 rolls its 32-slot ring and the decode steps wrap it), the chunk
 program's logits, batch-element independence (after
-`tests/test_models.py:180`, 2e-5), the init trees, configs and layer groups,
-and the refusals still standing (MLA, MTP).
+`tests/test_models.py:180`, 2e-5), the init trees (with an MTP module
+too), configs and layer groups.
 """
 
 import dataclasses
@@ -388,9 +388,17 @@ def test_configs_and_layer_groups_equal_the_reference():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_recurrent_archs_build_and_mla_is_still_refused(arch):
+    """The full configs build; with an MTP module (refused by name until MLA
+    and MTP were ported, whence the test's name) the smoke config builds
+    too, its `mtp` subtree the reference's: one unstacked layer of the last
+    layer's signature."""
     build_model(configs.get_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="mtp_depth"):
-        build_model(dataclasses.replace(configs.get_smoke(arch), mtp_depth=1), device="cpu")
+    jcfg, tcfg = (dataclasses.replace(c, mtp_depth=1) for c in _configs(arch))
+    jshape = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
+    want = [(p, tuple(x.shape)) for p, x in JModel.named_leaves(jshape)]
+    params = build_model(tcfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert [(p, tuple(x.shape)) for p, x in leaves_with_path(params)] == want
+    assert "layer" in params["mtp"] and "proj" in params["mtp"]
 
 
 def test_fp32_head_is_made_once_per_head():
