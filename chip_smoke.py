@@ -217,14 +217,31 @@ printing one JSON line for each:
                checked at each lane's finish;
   18. mla    — deepseek-v3-671b at 4 layers without its MTP module: a
                continuous serve of 8 prompts of one prefill bucket, whose
-               params are written in the reference's checkpoint layout
-               (numpy, under build/) and served back through `--ckpt` from
+               params the port's `CheckpointManager` writes in the
+               reference's layout (under build/) and served back through `--ckpt` from
                another seed's init (the same streams); spec with the shrink
                drafter, chain and two branches (the continuous streams,
                exact launches); `--prefill-chunk 64` (the archs phase's
                streams, or parted at near ties); the prefix pool (pooled =
                pool-less); and int4_palette (`wq_b` / `wkv_b` on anemm,
-               the rest on palette, launches exact).
+               the rest on palette, launches exact);
+  19. train  — the gradients of the three kernels with a VJP row (anemm,
+               flash, conv2d) through their CUDA forwards against autograd
+               through their plain versions, at each row's first case in
+               bf16 and fp32 and its tolerance; full tinyllama-1.1b (22
+               layers, random weights from seed 0) trained by the training
+               CLI's entry point for 30 steps of 8 x 128 tokens with a
+               checkpoint at the end: every route cuda, `anemm` and `flash`
+               launched each step (the recompute of the full remat
+               included), the loss falling, step 0's loss within 2e-3 of the
+               same params' loss through the plain versions on the card;
+               one step traced (device time by kernel, busy share, traced
+               instances = launches); then the resume check at full width
+               and 2 layers: 10 steps straight against 5, a crash just
+               after the step-5 checkpoint, the supervisor's restart from it
+               and 5 more, the logged losses and every param and moment
+               compared (bit for bit expected; any leaf whose gradient is
+               not the same twice is named).
 
 Then a `script` line with the whole run's seconds, a `kernels` line with
 every kernel's numbers, the card's name and power limit as nvidia-smi
@@ -259,7 +276,6 @@ import sys
 import tempfile
 import time
 import warnings
-import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -272,8 +288,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the port itself: alone in a directory, the script stops here
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import dispatch, hal, prng  # noqa: E402
 from repro_torch.core.numerics import _LUT_SPECS  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.core.dispatch import (AsyncExecutionStream, KernelDispatcher,  # noqa: E402
                                        ProgramCache, dtype_name)
 from repro_torch.kernels import common, native, registry  # noqa: E402
@@ -292,7 +310,7 @@ from repro_torch.kernels.flash.flash_attention import HEAD_DIMS as FLASH_HEAD_DI
 from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.specdec import specdec as sd  # noqa: E402  (the module)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.scheduler import (ChunkConfig, ContinuousSchedule,  # noqa: E402
                                           Request, ServeConfig, SLOSchedule, TokenSampler,
                                           build_scheduler, merge_prefill_caches)
@@ -300,6 +318,7 @@ from repro_torch.launch.speculative import Drafter, SpeculativeSchedule  # noqa:
 from repro_torch.models import dispatched as dsp  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.compression import compress_model_params  # noqa: E402
 from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
 
@@ -434,6 +453,17 @@ DECODE_HEADS = {64: (32, 4), **WIDE_HEADS}
 INVARIANCE_ROWS = (1, 8, 16, 40, 80, 264, 512)
 RAGGED_SHAPES = ((257, 130), (300, 100))
 PLAN_ROWS = (8, 40, 80, 512)
+
+# the train phase: tinyllama-1.1b at full width and depth through the
+# training CLI, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens; step 0's
+# loss through the kernels within TRAIN_LOSS_RTOL of the plain versions'; the
+# resume check at k = TRAIN_RESUME_K steps and TRAIN_RESUME_LAYERS layers,
+# its logged losses within TRAIN_RESUME_TOL
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 128
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_RESUME_K, TRAIN_RESUME_LAYERS = 5, 2
+TRAIN_RESUME_TOL = 1e-5
 
 TIMING_REPS = 20
 # traced serve rounds the profile phase may take to get one whose trace
@@ -1648,6 +1678,7 @@ def main(argv: list[str]) -> int:
         serve_recurrent(name, arch_tokens[name])
     serve_long_window()
     serve_mla(arch_tokens[MLA_ARCH])
+    run_train_phase()
     emit("script", seconds=time.perf_counter() - T0)
 
     kernels = []
@@ -2996,7 +3027,18 @@ def profile_serve(label: str, argv: list[str]) -> None:
     if isinstance(engine.stream, AsyncExecutionStream):
         engine.stream.close()
     ours = [s for s, _, n in events if trace_kernel(n) is not None]
-    first = min(ours) if ours else 0.0
+    n_tokens = sum(r.tokens.size for r in results)
+    emit("profile", run=label, round=2, trace_attempts=attempt, records_lost=lost,
+         profiled_wall_s=wall, profiled_tok_per_s=n_tokens / wall,
+         **device_time(events, min(ours) if ours else 0.0),
+         trace_kernel_instances=traced, host_launches=host)
+
+
+def device_time(events: list, first: float) -> dict:
+    """Of a trace's device events (start, end, name) from `first` on: their
+    count, the device's busy time (the union of the kernels' spans) and
+    busy share of the window up to the last one's end, and the 12 kernel
+    names that took the most device time."""
     spans, by_name = [], {}
     for start, end, name in events:
         if start < first:
@@ -3005,7 +3047,7 @@ def profile_serve(label: str, argv: list[str]) -> None:
         short = name.removeprefix("void ").replace("(anonymous namespace)::", "") \
             .split("(")[0].split("<")[0]
         by_name[short] = by_name.get(short, 0.0) + (end - start)
-    busy = 0.0
+    busy = window = 0.0
     if spans:
         spans.sort()
         cur_s, cur_e = spans[0]
@@ -3017,15 +3059,11 @@ def profile_serve(label: str, argv: list[str]) -> None:
                 cur_e = max(cur_e, e)
         busy += cur_e - cur_s
         window = max(e for _, e in spans) - first
-    n_tokens = sum(r.tokens.size for r in results)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", run=label, round=2, trace_attempts=attempt, records_lost=lost,
-         device_events=len(spans), profiled_wall_s=wall, profiled_tok_per_s=n_tokens / wall,
-         device_busy_ms=busy / 1e3,
-         device_busy_share=busy / window if spans else None,
-         window_ms=window / 1e3 if spans else None,
-         trace_kernel_instances=traced, host_launches=host,
-         device_ms_by_kernel={k: v / 1e3 for k, v in top})
+    return {"device_events": len(spans), "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / window if spans else None,
+            "window_ms": window / 1e3 if spans else None,
+            "device_ms_by_kernel": {k: v / 1e3 for k, v in top}}
 
 
 def check_parity_encdec() -> None:
@@ -3595,32 +3633,8 @@ def mla_config() -> tuple:
                                    "beside the spec serves' 11 captured programs"})
 
 
-def write_reference_checkpoint(params, directory: Path, step: int) -> int:
-    """`params` (dense) in the reference's checkpoint layout
-    (`src/repro/checkpoint/checkpoint.py`), written with numpy: `step_%09d/`
-    holding `manifest.json` (flat "a/b/c" -> shape and dtype), `arrays.npz`
-    (each leaf under "a|b|c", one leaf at a time; bfloat16 as raw 2-byte
-    records, the manifest naming the dtype) and `COMMIT`, written last.
-    Returns the bytes written."""
-    d = directory / f"step_{step:09d}"
-    d.mkdir(parents=True)
-    manifest, nbytes = {}, 0
-    with zipfile.ZipFile(d / "arrays.npz", "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
-        for path, leaf in leaves_with_path(params):
-            t = leaf.detach().cpu()
-            if t.dtype == torch.bfloat16:
-                arr, dt = t.view(torch.int16).numpy().view("V2"), "bfloat16"
-            else:
-                arr = t.numpy()
-                dt = str(arr.dtype)
-            manifest[path] = {"shape": list(arr.shape), "dtype": dt}
-            nbytes += arr.nbytes
-            with zf.open(path.replace("/", "|") + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, arr, allow_pickle=False)
-            del t, arr
-    (d / "manifest.json").write_text(json.dumps(manifest))
-    (d / "COMMIT").write_text("ok")
-    return nbytes
+def checkpoint_bytes(step_dir: Path) -> int:
+    return sum(f.stat().st_size for f in step_dir.iterdir())
 
 
 def serve_mla_ckpt(cfg, reduced: dict, ckpt: Path, want_tokens: np.ndarray,
@@ -3705,8 +3719,9 @@ def serve_mla(arch_tokens: np.ndarray) -> None:
     ckpt = Path(tempfile.mkdtemp(prefix="mla_ckpt_", dir=ROOT / "build"))
     try:
         t0 = time.perf_counter()
-        written = {"bytes": write_reference_checkpoint(params, ckpt, step=7)}
-        written["write_s"] = time.perf_counter() - t0
+        CheckpointManager(str(ckpt)).save(7, params)
+        written = {"write_s": time.perf_counter() - t0,
+                   "bytes": checkpoint_bytes(ckpt / f"step_{7:09d}")}
         del params
         serve_mla_ckpt(cfg, reduced, ckpt, want, written)
     finally:
@@ -3716,6 +3731,241 @@ def serve_mla(arch_tokens: np.ndarray) -> None:
     serve_recurrent_chunked(cfg, arch_tokens, record="mla_chunked")
     prefix_serves(cfg)
     serve_mla_packed(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the train phase: gradients through the kernels, the training CLI at full
+# width, the loss against the plain versions, a resume from a checkpoint
+# ---------------------------------------------------------------------------
+
+
+class PlainDispatcher(KernelDispatcher):
+    """Routes every call on the card to the kernel's plain PyTorch version:
+    the model's loss through plain versions on the same device and params."""
+
+    def resolve(self, name: str, x: torch.Tensor) -> dispatch.KernelRoute:
+        route = super().resolve(name, x)
+        return dataclasses.replace(route, backend="torch", reason="plain on the card")
+
+
+def check_vjps() -> None:
+    """Each registry row with a VJP (anemm, flash, conv2d), at its first
+    case, in bf16 and fp32: the gradients through the CUDA kernel's autograd
+    wrapper against autograd through the plain math, at the row's
+    tolerance; the wrapper must launch its kernel."""
+    failures = []
+    for spec in registry.all_specs():
+        if spec.make_vjp is None:
+            continue
+        case = next(c for c in spec.cases if not c.edge)
+        for dtype in (torch.bfloat16, torch.float32):
+            inputs = spec.make_inputs(case, dtype, np.random.default_rng(7), "cuda")
+            kernel_fn, plain_fn, args = spec.make_vjp(inputs)
+            native.reset_launch_counts()
+            got = torch.autograd.grad(kernel_fn(*args), args)
+            launched = native.launch_counts()[spec.name]
+            want = torch.autograd.grad(plain_fn(*args), args)
+            errs = [_compare(g, w, spec.tol(dtype)) for g, w in zip(got, want)]
+            ok = launched >= 1 and all(good for _, good in errs)
+            emit("train_vjp", kernel=spec.name, case=case.name, dtype=dtype_name(dtype),
+                 tol=list(spec.tol(dtype)), max_abs_err=[e for e, _ in errs],
+                 kernel_launches=launched, ok=ok)
+            if not ok:
+                failures.append(f"{spec.name}/{dtype_name(dtype)}")
+    if failures:
+        raise AssertionError(f"VJP rows off their plain versions: {failures}")
+
+
+def train_argv(steps: int, ckpt: Path, *extra: str) -> list[str]:
+    return ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-dir", str(ckpt), "--log-every", "1",
+            "--device", "cuda", *extra]
+
+
+def plain_loss_at_step_zero(cfg) -> tuple[float, float]:
+    """(the loss through the kernels, the loss through the plain versions)
+    of the training CLI's step 0: its params (seed 0) and its first batch,
+    both on the card, no backward."""
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)).batch(0).items()}
+    losses = []
+    for disp in (KernelDispatcher(), PlainDispatcher()):
+        model = build_model(cfg, disp, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        for _, t in leaves_with_path(params):
+            t.requires_grad_(True)        # the training path (the head widened per call)
+        loss, _ = model.loss(params, batch)
+        losses.append(float(loss.detach()))
+        backend = "torch" if isinstance(disp, PlainDispatcher) else "cuda"
+        if {r.backend for r in disp.routes} != {backend}:
+            raise AssertionError(f"step-0 loss routes {disp.census()}")
+        del model, params, loss
+        release_memory()
+    return losses[0], losses[1]
+
+
+def train_full_width(cfg, root: Path) -> dict:
+    """tinyllama-1.1b at full width and depth through the training CLI:
+    TRAIN_STEPS steps, a checkpoint at the end; the loss must fall, every
+    route must be cuda with `anemm` and `flash` on them, and step 0's loss
+    must equal the plain versions' within TRAIN_LOSS_RTOL."""
+    release_memory()
+    kernel_loss, plain_loss = plain_loss_at_step_zero(cfg)
+    native.reset_launch_counts()
+    out = train.run(train_argv(TRAIN_STEPS, root / "full"), cfg=cfg)
+    launches = native.launch_counts()
+    hist = out["loss_history"]
+    steps_ms = [s * 1e3 for s in out["step_s"]]
+    step_dir = root / "full" / f"step_{TRAIN_STEPS:09d}"
+    routes = {f"{k}/{b}": n for (k, b), n in out["routes"].items()}
+    rec = {"config": cfg.name, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "loss_first": hist[0], "loss_last": hist[-1], "loss_history": hist,
+           "loss_step0_kernels": kernel_loss, "loss_step0_plain": plain_loss,
+           "step0_equals_cli": kernel_loss == hist[0],
+           "loss_rtol": TRAIN_LOSS_RTOL, "routes": routes,
+           "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items() if n},
+           "step_ms_median": statistics.median(steps_ms[1:]), "step_ms_first": steps_ms[0],
+           "peak_memory_gb": out["peak_memory_gb"], "save_s": out["save_s"][-1],
+           "checkpoint_bytes": checkpoint_bytes(step_dir)}
+    emit("train", **rec)
+    if set(out["routes"]) != {("anemm", "cuda"), ("flash", "cuda")}:
+        raise AssertionError(f"train routes {out['routes']}")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"the loss did not fall: {hist}")
+    if abs(hist[0] - plain_loss) > TRAIN_LOSS_RTOL * abs(plain_loss):
+        raise AssertionError(f"step 0 loss {hist[0]} against {plain_loss} through the plain "
+                             "versions")
+    return rec
+
+
+def profile_train_step(cfg) -> None:
+    """One train step of the full-width run's shape under the profiler
+    (tracing the device; the step before it untraced): device time by
+    kernel, the busy share, and the traced instances of the port's kernels
+    against the host's launch counts."""
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw.AdamWConfig(warmup_steps=5, total_steps=TRAIN_STEPS)
+    state = adamw.init_state(opt, params)
+    step = train.make_train_step(model, opt)
+    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in src.batch(t).items()} for t in (0, 1)]
+    step(params, state, batches[0])
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batches[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: n for k, n in native.launch_counts().items() if n}
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced: dict[str, int] = {}
+    for _, _, name in events:
+        kernel = trace_kernel(name)
+        if kernel is not None:
+            traced[kernel] = traced.get(kernel, 0) + 1
+    emit("train_profile", config=cfg.name, profiled_step_ms=wall * 1e3,
+         **device_time(events, min(s for s, _, _ in events) if events else 0.0),
+         trace_kernel_instances=traced, host_launches=launches)
+    del model, params, state, step
+    release_memory()
+
+
+def train_resume(cfg, root: Path) -> None:
+    """2k steps straight against k steps, a crash just after the step-k
+    checkpoint, the supervisor's restart from it and k more (k =
+    TRAIN_RESUME_K), both through the training CLI at full width and
+    TRAIN_RESUME_LAYERS layers: the logged losses within TRAIN_RESUME_TOL,
+    and the largest difference of any param or moment reported. Where it is
+    not zero, two gradients of one step from one state show which leaves
+    the backward does not give the same bits twice."""
+    k = TRAIN_RESUME_K
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_RESUME_LAYERS)
+    argv = lambda name: train_argv(2 * k, root / name, "--ckpt-every", str(k))  # noqa: E731
+    straight = train.run(argv("straight"), cfg=cut)
+    real, crashed = train.make_train_step, []
+
+    def crash_after_checkpoint(*a, **kw):
+        step = real(*a, **kw)
+
+        def wrapped(params, state, batch):
+            if int(state["step"]) == k and not crashed:
+                crashed.append(k)
+                raise RuntimeError("injected failure after the step-k checkpoint")
+            return step(params, state, batch)
+        return wrapped
+
+    train.make_train_step = crash_after_checkpoint
+    try:
+        resumed = train.run(argv("resumed"), cfg=cut)
+    finally:
+        train.make_train_step = real
+    want = CheckpointManager(str(root / "straight"))
+    got = CheckpointManager(str(root / "resumed"))
+    a, _ = want.restore(state_template(cut))
+    b, _ = got.restore(state_template(cut))
+    diffs = {p: float((x.float() - y.float()).abs().max())
+             for (p, x), (_, y) in zip(leaves_with_path(a), leaves_with_path(b))}
+    worst = max(diffs, key=diffs.get)
+    loss_diff = max(abs(x - y) for x, y in zip(straight["loss_history"], resumed["loss_history"]))
+    rec = {"config": cut.name, "reduced": {"n_layers": {"kept": TRAIN_RESUME_LAYERS,
+                                                        "of": cfg.n_layers,
+                                                        "why": "six saves of the state; at 22 "
+                                                               "layers each is ~11 GB (bf16 "
+                                                               "params, fp32 moments)"}},
+           "k": k, "crashed_at": crashed, "losses_straight": straight["loss_history"],
+           "losses_resumed": resumed["loss_history"], "max_loss_diff": loss_diff,
+           "loss_tol": TRAIN_RESUME_TOL, "max_state_diff": diffs[worst],
+           "at": worst if diffs[worst] > 0 else None,
+           "checkpoint_bytes": checkpoint_bytes(root / "straight" / f"step_{2 * k:09d}"),
+           "save_s": straight["save_s"]}
+    if diffs[worst] > 0:
+        rec["nondeterministic_grads"] = nondeterministic_leaves(cut)
+    emit("train_resume", **rec)
+    if crashed != [k] or len(resumed["loss_history"]) != 2 * k or loss_diff > TRAIN_RESUME_TOL:
+        raise AssertionError(f"resume: crashed {crashed}, losses {resumed['loss_history']} "
+                             f"against {straight['loss_history']}")
+
+
+def state_template(cfg):
+    """A (params, AdamW state) template of `cfg` on the card, as the CLI saves it."""
+    params = build_model(cfg, KernelDispatcher(), device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(1))
+    return params, adamw.init_state(adamw.AdamWConfig(), params)
+
+
+def nondeterministic_leaves(cfg) -> list[str]:
+    """The param leaves whose gradient differs between two backward passes
+    of one loss on one batch."""
+    model = build_model(cfg, KernelDispatcher(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    named = leaves_with_path(params)
+    for _, t in named:
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)).batch(0).items()}
+    grads = [torch.autograd.grad(model.loss(params, batch)[0], [t for _, t in named])
+             for _ in range(2)]
+    return [p for (p, _), g1, g2 in zip(named, *grads) if not torch.equal(g1, g2)]
+
+
+def run_train_phase() -> None:
+    """The train phase: `check_vjps`, `train_full_width`, `train_resume`,
+    the checkpoints under a temporary directory of build/."""
+    check_vjps()
+    cfg = configs.get_config(TRAIN_ARCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        train_full_width(cfg, root)
+        release_memory()
+        profile_train_step(cfg)
+        train_resume(cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release_memory()
 
 
 if __name__ == "__main__":

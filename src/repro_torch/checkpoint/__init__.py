@@ -1,1 +1,1 @@
-"""Checkpoints in the reference's layout (the read half)."""
+"""Checkpoints in the reference's layout, read and written."""

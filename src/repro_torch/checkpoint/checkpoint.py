@@ -1,7 +1,6 @@
-"""Read checkpoints written in the reference's layout.
+"""Checkpoints in the reference's layout: read and written with numpy.
 
-The read half of `src/repro/checkpoint/checkpoint.py`. One directory per
-step:
+After `src/repro/checkpoint/checkpoint.py`. One directory per step:
 
     <dir>/step_000000123/
         manifest.json        # flat key "a/b/c" -> {shape, dtype}, or null
@@ -12,6 +11,13 @@ step:
 `CheckpointReader` counts only COMMITted `step_%09d` directories (`steps`,
 `latest_step`, reference :104-115), reads a step's metadata (`metadata`,
 :171-183) and restores a step into a template tree (`restore`, :190-215).
+`CheckpointManager` adds the write half (:93-169): `save` writes a tree
+leaf by leaf, `save_async` snapshots it to host numpy now and writes on a
+background thread (`wait` joins it), and every write goes to
+`step_%09d.tmp`, is renamed into place, gets its COMMIT last and then
+keeps the newest `keep` committed steps (`_gc`). The reference's manager
+restores what this one writes, and this one what the reference's writes.
+
 A packed weight (`models.dispatched.DispatchedWeight`) is stored as its
 payload arrays under its path plus a `__weightform__` marker, and restores
 into a template node of the same form, with the template's tag (the walk of
@@ -19,15 +25,15 @@ into a template node of the same form, with the template's tag (the walk of
 the reference's words.
 
 Numpy only: no JAX and no pickle. A bfloat16 leaf is stored as raw 2-byte
-records (the manifest names its dtype) and is reinterpreted bit for bit.
-A member stored uncompressed (as `np.savez` writes them) is memory-mapped
-where it lies in `arrays.npz` and copied once, straight into the
-template's tensor, so its CRC is not recomputed (COMMIT guards against a
-torn write); a compressed member is read through `np.load`. The restore
-writes each array into the template's tensor in place, on that tensor's
-device and in its dtype (a tree drawn by `Model.init`, packed first where
-the checkpoint is), so no second copy of the weights is ever held. Writing
-checkpoints comes with the training entry points.
+records (numpy's `V2`, as the reference's `np.savez` stores its bfloat16;
+the manifest names the dtype) and is reinterpreted bit for bit. A member
+stored uncompressed (as `np.savez` writes them) is memory-mapped where it
+lies in `arrays.npz` and copied once, straight into the template's tensor,
+so its CRC is not recomputed (COMMIT guards against a torn write); a
+compressed member is read through `np.load`. The restore writes each array
+into the template's tensor in place, on that tensor's device and in its
+dtype (a tree drawn by `Model.init`, packed first where the checkpoint is),
+so no second copy of the weights is ever held.
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import struct
+import threading
 import zipfile
 from typing import Any
 
@@ -212,3 +220,117 @@ class _NpzLeaves:
             return self.npz[name]
         return np.memmap(self.path, dtype=dtype, mode="c", offset=offset, shape=shape,
                          order="F" if fortran else "C")
+
+
+# ---------------------------------------------------------------------------
+# The write half (reference :29-64, :93-169)
+# ---------------------------------------------------------------------------
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as the numpy array the reference's snapshot would hold:
+    bfloat16 as raw 2-byte `V2` records."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _flatten(tree: Any, *, snapshot: bool) -> dict[str, Any]:
+    """path -> leaf (or None), packed nodes as their payload plus the form
+    marker (reference `_flatten`, :29); `snapshot`: every tensor copied to a
+    host numpy array now, else left where it is."""
+    flat: dict[str, Any] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, DispatchedWeight):
+            flat[f"{prefix}{_SEP}{_FORM_KEY}"] = np.asarray(node.form.value)
+            walk(node.payload, prefix)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}{_SEP}{k}" if prefix else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{_SEP}{i}")
+        elif node is None:
+            flat[prefix] = None
+        elif isinstance(node, torch.Tensor):
+            flat[prefix] = _host(node) if snapshot else node
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk(tree, "")
+    return flat
+
+
+def _manifest_entry(leaf: Any) -> dict | None:
+    if leaf is None:
+        return None
+    if isinstance(leaf, torch.Tensor):
+        return {"shape": list(leaf.shape), "dtype": str(leaf.dtype).removeprefix("torch.")}
+    return {"shape": list(leaf.shape),
+            "dtype": "bfloat16" if leaf.dtype == np.dtype("V2") else str(leaf.dtype)}
+
+
+class CheckpointManager(CheckpointReader):
+    """The reader plus atomic, optionally asynchronous writes; keeps the
+    newest `keep` committed steps. `arrays.npz` is written as `np.savez`
+    writes it (stored members, `a|b|c.npy`), one leaf at a time: `save`
+    copies each tensor to the host only as its turn comes, so a large tree
+    never has a second whole copy on the host."""
+
+    def __init__(self, directory: str, keep: int = 3) -> None:
+        super().__init__(directory)
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: threading.Thread | None = None
+
+    def save(self, step: int, tree: Any, metadata: dict | None = None) -> None:
+        """Write `tree` as step `step`, atomically. `metadata` (a small
+        JSON-serializable dict) commits with it."""
+        self.wait()
+        self._write(step, _flatten(tree, snapshot=False), metadata)
+
+    def save_async(self, step: int, tree: Any, metadata: dict | None = None) -> None:
+        """Snapshot `tree` to host now; write it on a background thread."""
+        self.wait()
+        snapshot = _flatten(tree, snapshot=True)
+        self._thread = threading.Thread(target=self._write, args=(step, snapshot, metadata),
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, flat: dict[str, Any], metadata: dict | None) -> None:
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w", zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for k, leaf in flat.items():
+                if leaf is None:
+                    continue
+                arr = _host(leaf) if isinstance(leaf, torch.Tensor) else leaf
+                with zf.open(k.replace(_SEP, "|") + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({k: _manifest_entry(v) for k, v in flat.items()}, f)
+        if metadata is not None:
+            with open(os.path.join(tmp, "metadata.json"), "w") as f:
+                json.dump(metadata, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        with open(os.path.join(final, "COMMIT"), "w") as f:
+            f.write("ok")
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.steps()
+        for s in steps[:max(0, len(steps) - self.keep)]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)

@@ -4,7 +4,10 @@ After `src/repro/kernels/act_lut/ops.py`: `table_operands(name, device)` is
 the table a kernel reads (its `lut_table_operands`, :32, as one fp32 tensor
 of 99 values, cached per device), `lut_activation(name)` evaluates it
 through the `act_lut` kernel in ANE mode (:58) and `lut_apply_ref` through
-the plain version (:43). Gradients come with training.
+the plain version (:43). The kernel is forward-only in the port (the
+reference's custom JVP, :64-80, serves no training path: a fused epilogue's
+gradient comes from the conv's plain version, `kernels/conv/ops.py`), and
+`models.dispatched` refuses a gradient through an unfused `act_lut`.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ the input dtype.
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version `anemm_ref`. The kernel sums K in the chunks of `common.chunk_plan`
 (a function of K, N and dtype, so a row's bits do not depend on M) and
-spreads them over blocks by `common.launch_plan`. Backward (reference
-`ops.py:29`) comes with training.
+spreads them over blocks by `common.launch_plan`. The training route
+(`ops.matmul`, reference `ops.py:20-36`) adds a plain fp32 backward.
 """
 
 from __future__ import annotations

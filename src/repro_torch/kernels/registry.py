@@ -14,7 +14,10 @@ Rows: `anemm` (reference :149), `palette` (:183), `sparse` (:221), `flash`
 (:287), `decode_attention` (:332), `paged_decode_attention` (:398),
 `act_lut` (:447), `specdec` (:500), `specdec_tree` (:561), `conv2d` (:626),
 `avg_pool` (:699) and `max_pool` (:721): every Pallas kernel of the
-reference.
+reference. `anemm`, `flash` and `conv2d` carry the reference's VJP rows
+(`_anemm_vjp` :140, `_flash_vjp` :276, `_conv2d_vjp` :614): the gradient
+through the kernel's autograd wrapper against autograd through the plain
+math, in the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -55,6 +58,11 @@ class KernelSpec:
     work: Callable[[dict], tuple[float, float]]   # inputs -> (operations, bytes)
     source: str                                   # the CUDA source in this repo
     replaces: str                                 # file:line of the TPU kernel
+    # inputs -> (scalar function through the kernel's differentiable
+    # wrapper, the same through the plain version, the tensors to
+    # differentiate, each requiring grad): the VJP leg (reference :72).
+    # None: forward-only
+    make_vjp: Callable[[dict], tuple[Callable, Callable, tuple]] | None = None
 
 
 _REGISTRY: dict[str, KernelSpec] = {}
@@ -117,6 +125,17 @@ def _anemm_work(i: dict) -> tuple[float, float]:
     return 2.0 * m * k * n, _nbytes(i["a"], i["b"]) + out_bytes
 
 
+def _grad_leaves(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    return tuple(t.detach().clone().requires_grad_(True) for t in tensors)
+
+
+def _anemm_vjp(inputs: dict):
+    from repro_torch.kernels.anemm import ops as anemm_ops
+
+    return (lambda a, b: anemm_ops.matmul(a, b).sum(),
+            lambda a, b: (a @ b).sum(), _grad_leaves(inputs["a"], inputs["b"]))
+
+
 def _register_anemm() -> None:
     from repro_torch.kernels.anemm.anemm import anemm
     from repro_torch.kernels.anemm.ref import anemm_ref
@@ -139,6 +158,7 @@ def _register_anemm() -> None:
         work=_anemm_work,
         source="src/repro_torch/csrc/anemm.cu",
         replaces="src/repro/kernels/anemm/anemm.py:69",
+        make_vjp=_anemm_vjp,
     ))
 
 
@@ -246,6 +266,15 @@ def _flash_work(i: dict) -> tuple[float, float]:
     return ops, 2.0 * _nbytes(i["q"]) + _nbytes(i["k"], i["v"])   # q in, out
 
 
+def _flash_vjp(inputs: dict):
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+
+    return (lambda q, k, v: flash_ops.attention(q, k, v).sum(),
+            lambda q, k, v: flash_attention_ref(q, k, v).sum(),
+            _grad_leaves(inputs["q"], inputs["k"], inputs["v"]))
+
+
 def _register_flash() -> None:
     from repro_torch.kernels.flash.flash_attention import flash_attention
     from repro_torch.kernels.flash.ref import flash_attention_ref
@@ -267,6 +296,7 @@ def _register_flash() -> None:
         work=_flash_work,
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash/flash_attention.py:93",
+        make_vjp=_flash_vjp,
     ))
 
 
@@ -596,6 +626,16 @@ def _conv2d_work(i: dict) -> tuple[float, float]:
             _nbytes(i["x"], i["w"], i["bias"]) + table + n_out * cout * i["x"].element_size())
 
 
+def _conv2d_vjp(inputs: dict):
+    from repro_torch.kernels.conv import ops as conv_ops
+    from repro_torch.kernels.conv.ref import conv2d_ref
+
+    st, pad = inputs["stride"], inputs["padding"]
+    return (lambda x, w: conv_ops.conv2d(x, w, stride=st, padding=pad).sum(),
+            lambda x, w: conv2d_ref(x, w, stride=st, padding=pad).sum(),
+            _grad_leaves(inputs["x"], inputs["w"]))
+
+
 def _register_conv2d() -> None:
     from repro_torch.kernels.conv.ops import conv2d
     from repro_torch.kernels.conv.ref import conv2d_ref
@@ -630,6 +670,7 @@ def _register_conv2d() -> None:
         work=_conv2d_work,
         source="src/repro_torch/csrc/conv2d.cu",
         replaces="src/repro/kernels/conv/conv2d.py:95",
+        make_vjp=_conv2d_vjp,
     ))
 
 

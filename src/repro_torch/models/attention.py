@@ -174,7 +174,8 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
 def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       positions: torch.Tensor, *, mode: str,
                       cache: Params | None = None) -> tuple[torch.Tensor, Params | None]:
-    """x (B, S, D), positions (B, S) int32. prefill: attend causally through
+    """x (B, S, D), positions (B, S) int32. train: prefill's attention with
+    no cache. prefill: attend causally through
     the flash route (a sliding-window layer: the blocked plain attention
     with its window, as the reference bypasses flash there) and return the
     new cache; decode: append the S tokens of every lane to `cache` in
@@ -188,12 +189,13 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q, k, v = _qkv(cfg, p, x, positions)
     disp = dsp.active_dispatcher()
     window = cfg.attn_window
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         if window is None:
             out = dsp.flash_route(disp, q, k, v, causal=True)
         else:
             out = chunked_attention(q, k, v, causal=True, window=window)
-        new_cache = _write_prefill_cache(k, v, positions, window)
+        new_cache = _write_prefill_cache(k, v, positions, window) if mode == "prefill" \
+            else None
     elif mode == "decode":
         if cache is None:
             raise ValueError("decode: the tokens attend a cache")
@@ -204,7 +206,7 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         else:
             out = _decode_attention(q, new_cache, positions, window)
     else:
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
     out = dsp.linear(out, p["wo"], n_contract=2, bias=p.get("bo"))
     return out, new_cache
 
@@ -339,13 +341,14 @@ def _mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.
     h, nope, dt = cfg.n_heads, cfg.qk_nope_dim, x.dtype
     scale = (nope + cfg.qk_rope_dim) ** -0.5
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, p, x, positions)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         kv = dsp.linear(c_kv, p["wkv_b"])                        # (B,S,H,nope+v)
         k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         v = F.pad(kv[..., nope:], (0, k.shape[-1] - cfg.v_head_dim))
         out = chunked_attention(q, k, v, causal=True, scale=scale)[..., :cfg.v_head_dim]
-        new_cache = {"c_kv": c_kv, "k_rope": k_rope, "pos": positions}
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope, "pos": positions} \
+            if mode == "prefill" else None
     elif mode == "decode":
         if cache is None:
             raise ValueError("decode: the tokens attend a cache")
@@ -363,7 +366,7 @@ def _mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.
             lanes.append((ctx.float() @ w_v).to(dt).transpose(0, 1))
         out = torch.stack(lanes)                                 # (B,S,H,v)
     else:
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
     return dsp.linear(out, p["wo"], n_contract=2), new_cache
 
 

@@ -15,6 +15,13 @@ A packed weight routes to the `palette` or `sparse` kernel, never to
 packed form raises there (the reference's HAL gate would fall back to the
 plain version instead; the port has no fallback on the card).
 
+Training differentiates three routes, as the reference does: a dense
+`linear` (`kernels.anemm.ops.matmul`: the kernel's or the plain forward,
+plain fp32 products backward), `flash_route` (`kernels.flash.ops.attention`:
+recompute backward) and `conv2d` (`kernels.conv.ops.conv2d`: the plain
+version differentiated). Packed weights, the pools and an unfused `act_lut`
+are forward-only and raise where a gradient is asked of them.
+
 The port has no undispatched path: the reference's plain `dot_general`
 and conv fallbacks would be library calls outside any kernel, so `linear`
 and the conv family outside a dispatcher scope raise.
@@ -221,22 +228,30 @@ def route_and_run(disp: KernelDispatcher, name: str, x: torch.Tensor,
     return native() if route.native else oracle()
 
 
+def _forward_only(what: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{what} is forward-only: no gradient flows through it "
+                         "(the reference trains dense weights only)")
+
+
 def _matmul_dense(disp: KernelDispatcher, a2: torch.Tensor,
                   w2: torch.Tensor) -> torch.Tensor:
-    from repro_torch.kernels.anemm.anemm import anemm
-    from repro_torch.kernels.anemm.ref import anemm_ref
+    from repro_torch.kernels.anemm import ops as anemm_ops
 
     # a weight of another dtype than the activation converts in one
     # contiguous copy (`to` aliases a same-dtype view whatever the memory
     # format); the heads arrive in fp32 already (`layers.fp32_head`)
     w2 = w2.to(a2.dtype, memory_format=torch.contiguous_format) \
         if w2.dtype != a2.dtype else w2.contiguous()
-    return route_and_run(disp, "anemm", a2, lambda: anemm(a2, w2),
-                         lambda: anemm_ref(a2, w2))
+    if anemm_ops.reusing():           # a `dots` recompute: the kept product
+        return anemm_ops.reuse(a2, w2)
+    return route_and_run(disp, "anemm", a2, lambda: anemm_ops.matmul(a2, w2),
+                         lambda: anemm_ops.matmul(a2, w2, plain=True))
 
 
 def _matmul_packed(disp: KernelDispatcher, a2: torch.Tensor,
                    w: DispatchedWeight) -> torch.Tensor:
+    _forward_only(f"a packed {w.form.value} weight", a2, *w.payload.values())
     spec, args = w.spec, w.spec.args(w.payload)
     return route_and_run(disp, w.kernel, a2, lambda: spec.run(a2, *args),
                          lambda: spec.plain(a2, *args))
@@ -268,12 +283,12 @@ def linear(x: torch.Tensor, w: torch.Tensor | DispatchedWeight, *, n_contract: i
 def flash_route(disp: KernelDispatcher, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
     """Fused-attention cell for (B, S, H, dh)-layout q/k/v: the flash kernel
-    on (B, H, S, dh) transposed views (no copies), or the chunked
-    online-softmax plain version."""
+    on (B, H, S, dh) transposed views (no copies; recompute backward), or
+    the chunked online-softmax plain version."""
     def native():
-        from repro_torch.kernels.flash.flash_attention import flash_attention
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
+        from repro_torch.kernels.flash import ops as flash_ops
+        out = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal)
         return out.transpose(1, 2)
 
     def oracle():
@@ -326,6 +341,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *
                            epilogue_table=table))
     if act is None or epilogue is not None:
         return out
+    _forward_only("an unfused act_lut", out)
     return route_and_run(disp, "act_lut", out, lambda: lut_activation(act)(out),
                          lambda: lut_apply_ref(out, act))
 
@@ -337,6 +353,7 @@ def _pool(x: torch.Tensor, *, window, stride, padding, kind: str) -> torch.Tenso
     native = getattr(conv_ops, kind)
     plain = getattr(conv_ref, f"{kind}_ref")
     disp = _require_dispatcher(f"{kind}()")
+    _forward_only(kind, x)
     return route_and_run(
         disp, kind, x,
         lambda: native(x, window=window, stride=stride, padding=padding),

@@ -2,7 +2,8 @@
 
 After `src/repro/models/encdec.py`: `init_encdec_stacks` (:32),
 `conv_stem` (:70), `encode` (:84), `build_cross_cache` (:115), the prefill
-and decode modes of `decoder_stack` (:124) and `init_decoder_cache` (:174).
+and decode modes of `decoder_stack` (:124), its train mode (no caches, a
+full remat region a layer) and `init_decoder_cache` (:174).
 Parameters keep the reference's stacked layout (a leading layer axis on
 every leaf of "enc" and "dec"); a Python loop over the layers replaces
 `lax.scan`, and layer `i` reads `leaf[i]`, a view.
@@ -29,6 +30,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import dispatched as dsp
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm, init_mlp, init_norm,
                                        normal, sinusoidal_positions)
+from repro_torch.models.transformer import remat
 from repro_torch.tree import tree_map
 
 
@@ -114,22 +116,31 @@ def build_cross_cache(cfg: ModelConfig, p: Params, enc_out: torch.Tensor) -> Par
 
 def decoder_stack(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                   mode: str, cross: Params,
-                  caches: Params | None = None) -> tuple[torch.Tensor, Params]:
-    """prefill: returns the stacked self-attention caches it built; decode:
-    writes `caches` (the stacked self caches) in place and returns them."""
-    per_layer = []
-    for i in range(cfg.n_layers):
-        unit = _layer(p["dec"], i)
-        cache = _layer(caches, i) if caches is not None else None
+                  caches: Params | None = None) -> tuple[torch.Tensor, Params | None]:
+    """train: no caches, each layer a full remat region (the reference
+    checkpoints every decoder layer, :147-152); prefill: returns the stacked
+    self-attention caches it built; decode: writes `caches` (the stacked
+    self caches) in place and returns them."""
+    def unit_fn(x, unit, cross_k, cross_v, cache):
         h = apply_norm(cfg, unit["ln1"], x)
         out, nc = attn_lib.attention_forward(cfg, unit["self_attn"], h, positions,
                                              mode=mode, cache=cache)
         x = x + out
         h = apply_norm(cfg, unit["lnx"], x)
         x = x + attn_lib.cross_attention_forward(cfg, unit["cross_attn"], h,
-                                                 (cross["k"][i], cross["v"][i]))
+                                                 (cross_k, cross_v))
         h = apply_norm(cfg, unit["ln2"], x)
-        x = x + apply_mlp(cfg, unit["mlp"], h)
+        return x + apply_mlp(cfg, unit["mlp"], h), nc
+
+    if mode == "train":
+        run = remat(lambda *args: unit_fn(*args, None)[0], "full")
+        for i in range(cfg.n_layers):
+            x = run(x, _layer(p["dec"], i), cross["k"][i], cross["v"][i])
+        return x, None
+    per_layer = []
+    for i in range(cfg.n_layers):
+        cache = _layer(caches, i) if caches is not None else None
+        x, nc = unit_fn(x, _layer(p["dec"], i), cross["k"][i], cross["v"][i], cache)
         per_layer.append(nc)
     if mode == "prefill":
         return x, {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}

@@ -173,9 +173,37 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
+class _Embed(torch.autograd.Function):
+    """Row gather whose backward sums each token's rows in one fixed order.
+
+    `index_select`'s backward adds the rows of a repeated token with CUDA
+    atomics, in whatever order they land, so two steps from one state could
+    differ in the table's low bits. Here the table's gradient is one plain
+    fp32 product, one-hot(tokens)^T @ grad (TF32 off), which sums every
+    row in the same order every time."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(flat)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, flat)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        from repro_torch.kernels.anemm.ops import full_fp32
+
+        (flat,) = ctx.saved_tensors
+        onehot = (flat[:, None] == torch.arange(ctx.rows, device=flat.device)[None]).float()
+        with full_fp32():
+            return (onehot.T @ g.float()).to(g.dtype), None
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     flat = tokens.reshape(-1).long()
-    return p["table"].index_select(0, flat).reshape(tokens.shape + (-1,))
+    table = p["table"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Embed.apply(table, flat).reshape(tokens.shape + (-1,))
+    return table.index_select(0, flat).reshape(tokens.shape + (-1,))
 
 
 # (id(head parameter), transposed) -> (weak reference to it, its version,
@@ -191,7 +219,12 @@ def fp32_head(w: torch.Tensor, transpose: bool) -> torch.Tensor:
     holds a copy of its own (recurrentgemma's 256,000 x 4,096 head is 4.2 GB
     in fp32). A copy made during a CUDA-graph capture is not kept: its
     contents exist only in the graph's replays. A head changed in place
-    after its first forward raises."""
+    after its first forward raises. A head that gradients flow into (a
+    training step's) is widened anew each call and never kept: its copy
+    belongs to that step's graph."""
+    if w.requires_grad and torch.is_grad_enabled():
+        return (w.T if transpose else w).to(torch.float32,
+                                             memory_format=torch.contiguous_format)
     key = (id(w), transpose)
     hit = _FP32_HEADS.get(key)
     if hit is not None and hit[0]() is w:

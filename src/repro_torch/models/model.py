@@ -1,11 +1,13 @@
-"""Model facade: init / prefill / decode on the port's decoders (dense,
-MoE, MLA, the RG-LRU hybrid, the SSM) and encoder-decoder.
+"""Model facade: init / train loss / prefill / decode on the port's decoders
+(dense, MoE, MLA, the RG-LRU hybrid, the SSM) and encoder-decoder.
 
 After `src/repro/models/model.py` (`Model` :42, `init` :68, `_backbone` :97,
-`forward` :119, `init_cache` :191, `prefill` :206, `decode_step` :216,
-`prefill_chunk` :225, `build_model` :298):
+`forward` :119, `loss` :136, `_mtp_loss` :160, `init_cache` :191,
+`prefill` :206, `decode_step` :216, `prefill_chunk` :225, `_xent` :272,
+`build_model` :298):
 
     init(generator)                                -> params
+    loss(params, batch)                            -> (scalar, metrics)
     prefill(params, batch)                         -> (caches, last_logits)
     decode_step(params, caches, token, pos)        -> (caches, logits)
     prefill_chunk(params, caches, tokens, pos0)    -> (caches, last_logits)
@@ -27,8 +29,12 @@ update in place like the K/V; an MLA layer caches its latent (`c_kv`,
 multi-token-prediction module's parameters as the reference does
 (`init`, reference :73-85): `mtp/proj` (2d, d), the norms `ln_h` / `ln_e` and
 `mtp/layer`, one layer of the last layer's signature with no stack axis. No
-served program reads them: the reference reads them only in the training
-loss (`_mtp_loss`, :160-189), which comes with the training entry points.
+served program reads them: only the training loss does (`_mtp_loss`).
+
+`loss` runs the stack in mode "train" (no caches, each unit under the
+config's remat policy) with autograd on: the dense matmuls, flash and the
+conv stem differentiate through their kernels' autograd wrappers
+(`models.dispatched`), everything else through plain PyTorch ops.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from repro_torch.core.dispatch import KernelDispatcher
 from repro_torch.models import dispatched as dsp
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models.attention import NEG_INF
 from repro_torch.models.layers import (Params, apply_norm, embed_tokens, init_embed,
                                        init_norm, logits as logits_fn, normal)
 
@@ -84,6 +91,7 @@ class Model:
 
     def _backbone(self, params: Params, x: torch.Tensor, positions: torch.Tensor, *,
                   mode: str, caches=None, frames: torch.Tensor | None = None):
+        """(x, caches, the MoE balance loss)."""
         cfg = self.cfg
         if cfg.family != "encdec":
             return tf_lib.apply_stack(cfg, params["layers"], x, positions, mode=mode,
@@ -92,26 +100,85 @@ class Model:
             cross = caches["cross"]               # built at prefill; resident
         else:
             if frames is None:
-                raise ValueError(f"{cfg.name}: prefill needs batch['frames'] "
+                raise ValueError(f"{cfg.name}: {mode} needs batch['frames'] "
                                  f"{cfg.frame_shape} per request")
             enc_out = encdec_lib.encode(cfg, params["encdec"], frames)
             cross = encdec_lib.build_cross_cache(cfg, params["encdec"], enc_out)
         x, self_caches = encdec_lib.decoder_stack(
             cfg, params["encdec"], x, positions, mode=mode, cross=cross,
             caches=caches["self"] if mode == "decode" else None)
-        return x, {"self": self_caches, "cross": cross}
+        new_caches = None if mode == "train" else {"self": self_caches, "cross": cross}
+        return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _forward(self, params: Params, tokens: torch.Tensor, positions: torch.Tensor, *,
+                 mode: str, caches=None, frames: torch.Tensor | None = None):
+        """(the final-normed hidden states, caches, the MoE balance loss)."""
+        with dsp.use_dispatcher(self.dispatcher):
+            x = embed_tokens(params["embed"], tokens).to(self.dtype)
+            x, new_caches, aux = self._backbone(
+                params, x, positions, mode=mode, caches=caches,
+                frames=None if mode == "decode" else frames)
+            h = apply_norm(self.cfg, params["final_ln"], x)
+        return h, new_caches, aux
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: torch.Tensor, *, mode: str, caches=None,
                 frames: torch.Tensor | None = None):
-        """Decode ignores `frames`: an encoder-decoder reads its cross K/V
-        from the caches."""
-        with dsp.use_dispatcher(self.dispatcher):
-            x = embed_tokens(params["embed"], tokens).to(self.dtype)
-            x, new_caches = self._backbone(params, x, positions, mode=mode, caches=caches,
-                                           frames=None if mode == "decode" else frames)
-            h = apply_norm(self.cfg, params["final_ln"], x)
+        """(h, caches). Decode ignores `frames`: an encoder-decoder reads its
+        cross K/V from the caches."""
+        h, new_caches, _ = self._forward(params, tokens, positions, mode=mode,
+                                         caches=caches, frames=frames)
         return h, new_caches
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def loss(self, params: Params, batch: dict[str, Any]) -> tuple[torch.Tensor, dict]:
+        """Next-token cross entropy with fp32 logits, plus 1e-4 z-loss and
+        1e-2 the MoE balance loss, plus 0.3 the MTP loss where the params
+        hold the MTP module (reference :136-158). Differentiable in every
+        dense param."""
+        cfg = self.cfg
+        tokens, targets = batch["tokens"], batch["targets"]          # (B, S)
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+        h, _, aux = self._forward(params, tokens, positions, mode="train",
+                                  frames=batch.get("frames"))
+        with dsp.use_dispatcher(self.dispatcher):
+            lg = logits_fn(cfg, params["embed"], h)                  # fp32 (B, S, V)
+            ce, z = xent(lg, targets, cfg.vocab)
+            loss = ce + 1e-4 * z + 1e-2 * aux
+            metrics = {"ce": ce, "zloss": z, "moe_aux": aux,
+                       "tokens": torch.tensor(float(b * s), device=tokens.device)}
+            if cfg.mtp_depth and "mtp" in params:
+                mtp = self._mtp_loss(params, tokens, targets, h, positions)
+                loss = loss + 0.3 * mtp
+                metrics["mtp"] = mtp
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+                  h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3's multi-token prediction at depth 1 (reference
+        :160-189): position t predicts token t+2 from the main stream at t
+        merged with the embedding of token t+1, through one more layer of
+        the last layer's signature; at full length (rolled, the last two
+        positions masked)."""
+        cfg = self.cfg
+        p = params["mtp"]
+        h_in = apply_norm(cfg, p["ln_h"], h)
+        next_tok = torch.roll(tokens, -1, dims=1)          # t+1 (the last column is junk)
+        e_next = apply_norm(cfg, p["ln_e"], embed_tokens(params["embed"], next_tok).to(h.dtype))
+        x = dsp.linear(torch.cat([h_in, e_next], dim=-1), p["proj"])
+        sig = tf_lib.layer_signature(cfg, cfg.n_layers - 1)
+        x, _, _ = tf_lib.apply_layer(cfg, sig, p["layer"], x, positions, mode="train",
+                                     cache=None)
+        lg = logits_fn(cfg, params["embed"], apply_norm(cfg, params["final_ln"], x))
+        s = tokens.shape[1]
+        mask = (torch.arange(s, device=tokens.device) < s - 2).float()[None, :]
+        ce, _ = xent(lg, torch.roll(targets, -1, dims=1), cfg.vocab, mask=mask)
+        return ce
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -158,6 +225,29 @@ class Model:
         with dsp.use_dispatcher(self.dispatcher):
             lg = logits_fn(self.cfg, params["embed"], h[:, -1:])
         return caches, lg
+
+
+def xent(lg: torch.Tensor, targets: torch.Tensor, vocab: int,
+         mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cross entropy, z-loss) over the true vocab (reference `_xent`,
+    :272-296): padded vocab slots masked to -1e30 in fp32, the max taken
+    without a gradient, the target's logit picked by compare-select (no
+    gather), each averaged over the tokens or, with a (1, S) `mask`, over
+    the unmasked ones."""
+    lg = lg.float()
+    v = lg.shape[-1]
+    cols = torch.arange(v, device=lg.device)
+    lg = torch.where(cols < vocab, lg, torch.full((), NEG_INF, device=lg.device))
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
+    picked = torch.sum(torch.where(cols == targets[..., None], lg,
+                                   torch.zeros((), device=lg.device)), dim=-1)
+    per_tok = lse - picked
+    z_tok = lse ** 2
+    if mask is None:
+        return per_tok.mean(), z_tok.mean()
+    denom = torch.clamp(mask.sum() * per_tok.shape[0] / mask.shape[0], min=1.0)
+    return (per_tok * mask).sum() / denom, (z_tok * mask).sum() / denom
 
 
 def build_model(cfg: ModelConfig, dispatcher: KernelDispatcher | None = None, *,

@@ -127,18 +127,20 @@ def _gates(p: Params, xi: torch.Tensor):
 
 def rglru_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor, *, mode: str,
                   cache: Params | None = None) -> tuple[torch.Tensor, Params | None]:
-    """xin (B, S, D). prefill: the scan from h = 0, returns the new cache;
+    """xin (B, S, D). train: the scan from h = 0, no cache. prefill: the
+    same, returns the new cache;
     decode with S == 1: h = a h + b; decode with S > 1 (a prefill chunk):
     the scan resumed from the cache's h. Both decode forms write the cache
     in place and return it."""
     gate = gelu(dsp.linear(xin, p["linear_y"]))
     xi = dsp.linear(xin, p["linear_x"])
     s = xin.shape[1]
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         xi, conv_state = causal_conv(xi, p["conv_w"], p["conv_b"])
         a, b = _gates(p, xi)                              # (B,S,w) each
         _, h = associative_scan(_combine, (a, b), axis=1)
-        new_cache = {"h": h[:, -1].to(xin.dtype), "conv": conv_state}
+        new_cache = {"h": h[:, -1].to(xin.dtype), "conv": conv_state} \
+            if mode == "prefill" else None
     elif mode == "decode":
         if cache is None:
             raise ValueError("decode: the RG-LRU steps from a cache")
@@ -157,7 +159,7 @@ def rglru_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor, *, mode: str,
         cache["conv"].copy_(conv_state)
         new_cache = cache
     else:
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
     out = dsp.linear(h.to(xin.dtype) * gate, p["out"])
     return out, new_cache
 

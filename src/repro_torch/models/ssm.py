@@ -151,8 +151,8 @@ def _write(cache: Params, new: Params) -> Params:
 
 def ssm_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor, *, mode: str,
                 cache: Params | None = None) -> tuple[torch.Tensor, Params | None]:
-    """xin (B, S, D). prefill: the chunked scan from a zero state, returns the
-    new cache; decode with S == 1: the O(1) state update; decode with S > 1
+    """xin (B, S, D). train: the chunked scan from a zero state, no cache.
+    prefill: the same, returns the new cache; decode with S == 1: the O(1) state update; decode with S > 1
     (a prefill chunk): the chunked scan resumed from the cache's state. Both
     decode forms write the cache in place and return it."""
     bsz, s, _ = xin.shape
@@ -165,7 +165,7 @@ def ssm_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor, *, mode: str,
     a = -torch.exp(p["a_log"])                                     # (H,)
     dt = softplus(dt.float() + p["dt_bias"])
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         xs, conv_x_state = causal_conv(xs, p["conv_x_w"], p["conv_x_b"])
         bc, conv_bc_state = causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"])
         x = xs.reshape(bsz, s, h, pdim)
@@ -174,7 +174,7 @@ def ssm_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor, *, mode: str,
         y, state = ssd_chunked(x, dt, a, b, c, cfg.ssm_chunk)
         y = y + x.float() * p["d_skip"][None, None, :, None]
         new_cache = {"state": state.to(xin.dtype), "conv_x": conv_x_state,
-                     "conv_bc": conv_bc_state}
+                     "conv_bc": conv_bc_state} if mode == "prefill" else None
     elif mode == "decode":
         if cache is None:
             raise ValueError("decode: the SSM steps from a cache")
@@ -207,7 +207,7 @@ def ssm_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor, *, mode: str,
         new_cache = _write(cache, {"state": state.to(xin.dtype), "conv_x": conv_x_state,
                                    "conv_bc": conv_bc_state})
     else:
-        raise ValueError(f"mode {mode!r}: the port serves prefill and decode")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', 'decode')")
 
     # gated RMS norm + out projection
     y = y.reshape(bsz, -1, di)

@@ -18,12 +18,15 @@ with the reference's trees. A Python loop over a group's units replaces
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.anemm.ops import save_products
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import dispatched as dsp
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
@@ -75,14 +78,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dtype,
 
 def apply_layer(cfg: ModelConfig, sig: Signature, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
-                cache: Params | None) -> tuple[torch.Tensor, Params | None]:
-    """One residual block; the MoE's load-balance loss is a training term
-    and is dropped here."""
+                cache: Params | None) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """One residual block: (x, its cache or None, the MoE's load-balance
+    loss, an fp32 scalar, zero for a dense block)."""
     kind, _ = sig
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "ssm":
         out, new_cache = ssm_lib.ssm_forward(cfg, p["mix"], h, mode=mode, cache=cache)
-        return x + out, new_cache
+        return x + out, new_cache, aux
     if kind == "rglru":
         out, new_cache = rglru_lib.rglru_forward(cfg, p["mix"], h, mode=mode, cache=cache)
     else:
@@ -91,10 +95,10 @@ def apply_layer(cfg: ModelConfig, sig: Signature, p: Params, x: torch.Tensor,
     x = x + out
     h = apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
-        out, _ = moe_lib.moe_forward(cfg, p["moe"], h)
+        out, aux = moe_lib.moe_forward(cfg, p["moe"], h)
     else:
         out = apply_mlp(cfg, p["mlp"], h)
-    return x + out, new_cache
+    return x + out, new_cache, aux
 
 
 def init_layer_cache(cfg: ModelConfig, sig: Signature, batch: int, max_len: int, dtype,
@@ -149,26 +153,65 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for sigs, count in layer_groups(cfg)]
 
 
+def remat(fn: Callable, policy: str) -> Callable:
+    """`fn` under the config's remat policy (reference :166-172), as a
+    non-reentrant `torch.utils.checkpoint` region: `full` keeps only the
+    region's inputs and recomputes the rest in the backward, `dots` keeps
+    the routed matmul products as well (`kernels.anemm.ops.save_products`),
+    `none` keeps everything. The values are the same under every policy.
+    The recompute runs under the dispatcher that was active in the forward."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat {policy!r} not in ('full', 'dots', 'none')")
+    kw = {"context_fn": save_products} if policy == "dots" else {}
+    disp = dsp.active_dispatcher()
+
+    def scoped(*args):
+        with dsp.use_dispatcher(disp):
+            return fn(*args)
+
+    return lambda *args: checkpoint(scoped, *args, use_reentrant=False, **kw)
+
+
 def apply_stack(cfg: ModelConfig, stacks: list[Params], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
-                caches: list[Params] | None = None) -> tuple[torch.Tensor, list[Params]]:
-    """prefill: builds and returns stacked caches; decode: updates `caches`
-    in place and returns them."""
-    new_caches: list[Params] = []
+                caches: list[Params] | None = None
+                ) -> tuple[torch.Tensor, list[Params] | None, torch.Tensor]:
+    """(x, caches, the MoE balance loss summed over layers). train: no
+    caches, each unit under `cfg.remat`; prefill: builds and returns stacked
+    caches; decode: updates `caches` in place and returns them."""
+    new_caches: list[Params] | None = None if mode == "train" else []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (sigs, count) in enumerate(layer_groups(cfg)):
-        per_layer: dict[str, list[Any]] = {f"sub{j}": [] for j in range(len(sigs))}
-        for i in range(count):
+        def unit_fn(x, unit_p, unit_c, sigs=sigs):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            ncache = {}
             for j, sig in enumerate(sigs):
                 sub = f"sub{j}"
-                unit_p = tree_map(lambda a: a[i], stacks[gi][sub])
-                unit_c = tree_map(lambda a: a[i], caches[gi][sub]) \
-                    if caches is not None else None
-                x, nc = apply_layer(cfg, sig, unit_p, x, positions, mode=mode, cache=unit_c)
-                per_layer[sub].append(nc)
+                x, ncache[sub], a = apply_layer(
+                    cfg, sig, unit_p[sub], x, positions, mode=mode,
+                    cache=None if unit_c is None else unit_c[sub])
+                aux = aux + a
+            return x, ncache, aux
+
+        if mode == "train":
+            run = remat(lambda x, unit_p, fn=unit_fn: fn(x, unit_p, None)[::2], cfg.remat)
+            for i in range(count):
+                x, aux = run(x, tree_map(lambda a: a[i], stacks[gi]))
+                aux_total = aux_total + aux
+            continue
+        per_unit = []
+        for i in range(count):
+            unit_p = tree_map(lambda a: a[i], stacks[gi])
+            unit_c = tree_map(lambda a: a[i], caches[gi]) if caches is not None else None
+            x, ncache, aux = unit_fn(x, unit_p, unit_c)
+            aux_total = aux_total + aux
+            per_unit.append(ncache)
         if mode == "prefill":
-            new_caches.append({sub: {name: torch.stack([c[name] for c in per])
-                                     for name in per[0]}
-                               for sub, per in per_layer.items()})
+            new_caches.append({sub: {name: torch.stack([u[sub][name] for u in per_unit])
+                                     for name in per_unit[0][sub]}
+                               for sub in per_unit[0]})
         else:
             new_caches.append(caches[gi])
-    return x, new_caches
+    return x, new_caches, aux_total

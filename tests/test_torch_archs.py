@@ -21,6 +21,8 @@ give the reference's logits, and an unknown family is refused. JAX runs are
 memoised.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import functools
 
@@ -38,6 +40,7 @@ from repro.kernels import registry as jreg
 from repro.launch.scheduler import (ContinuousSchedule as JContinuous, Request as JRequest,
                                     merge_prefill_caches as jmerge)
 from repro.models.model import Model as JModel, build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import ModelConfig
@@ -71,7 +74,7 @@ def reference(arch: str, dtype: str = "float32"):
     """(jcfg, jmodel, jparams, the port's bridged params)."""
     jcfg, tcfg = _configs(arch, dtype)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     return jcfg, jmodel, jparams, tparams
 
@@ -240,7 +243,7 @@ def test_unported_features_are_refused_by_name(cfg):
         return
     jcfg = jconfigs.ModelConfig(**dataclasses.asdict(cfg))
     jmodel = jbuild(jcfg)
-    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     want = [(p, tuple(x.shape)) for p, x in JModel.named_leaves(jparams)]
     model = build_model(cfg, KernelDispatcher(), device="cpu")
     own = model.init(torch.Generator().manual_seed(0))

@@ -1,12 +1,14 @@
-"""The port's checkpoint reader against checkpoints the reference writes.
+"""The port's checkpoint reader against checkpoints in the reference's layout.
 
-The reference's `CheckpointManager` writes, in-process, deepseek-v3-671b
-smoke's parameters (MLA, the MTP module) dense and packed by its
-`compress_model_params` (int4_palette), and a shrink drafter's parameters
-with the metadata `launch.distill` records. The port's `CheckpointReader`
-(numpy only) restores them into templates drawn by the port's own `init`
-(packed where the checkpoint is): every leaf bit for bit the reference's,
-the prefill and decode logits equal (bit for bit) to those of the same
+The port's `CheckpointManager` writes, in-process, deepseek-v3-671b smoke's
+parameters (MLA, the MTP module) as the reference draws them (bridged), dense
+and packed by the reference's `compress_model_params` (int4_palette), and a
+shrink drafter's parameters with the metadata `launch.distill` records (the
+reference's own manager writing and reading is held against the port's in
+`tests/test_torch_train_loop.py`). The port's `CheckpointReader` (numpy
+only) restores them into templates drawn by the port's own `init` (packed
+where the checkpoint is): every leaf bit for bit the reference's, the
+prefill and decode logits equal (bit for bit) to those of the same
 parameters bridged directly. Also: only COMMITted steps count, metadata
 reads back, dense-versus-packed and form mismatches raise in the
 reference's words, and the serve CLI's `--ckpt` and `--draft-ckpt` serve
@@ -14,6 +16,8 @@ the restored weights and refuse as the reference's do (a drafter of another
 vocab before any array loads, `--draft self` with `--draft-ckpt`,
 `params=` with `ckpt=`).
 """
+
+import _torch_threads  # noqa: F401
 
 import dataclasses
 import functools
@@ -26,17 +30,16 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.checkpoint.checkpoint import CheckpointManager
 from repro.launch.speculative import draft_of as jdraft_of
 from repro.models.model import Model as JModel, build_model as jbuild
-from repro.optim.compression import compress_model_params as jcompress
+from _reference_params import packed_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
-from repro_torch.checkpoint.checkpoint import CheckpointReader
+from repro_torch.checkpoint.checkpoint import CheckpointManager, CheckpointReader
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
 from repro_torch.launch import serve
 from repro_torch.launch.scheduler import SequentialSchedule, Request, merge_prefill_caches
-from repro_torch.launch.speculative import Drafter
+from repro_torch.launch.speculative import Drafter, draft_of
 from repro_torch.models.model import build_model
 from repro_torch.optim.compression import compress_model_params, weight_form_census
 from repro_torch.tree import leaves_with_path
@@ -50,25 +53,33 @@ LENS, GEN = (9, 13), 4
 def reference(form: str = "fp16"):
     """(jparams, the port's bridged params) of deepseek smoke."""
     jcfg = jconfigs.get_smoke(ARCH)
-    jparams = jax.jit(jbuild(jcfg).init)(jax.random.PRNGKey(0))
-    if form != "fp16":
-        jparams = jcompress(jparams, form)
+    jparams = packed_params(jcfg, form)
     return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                       configs.get_smoke(ARCH), "cpu")
 
 
-@pytest.fixture(scope="module")
-def ckpt_root(tmp_path_factory):
-    """Checkpoints the reference writes: `dense` (step 3), `int4` (step 5),
-    the drafter `draft` and a drafter of another vocab `draft_vocab`."""
-    root = tmp_path_factory.mktemp("ckpt")
-    CheckpointManager(str(root / "dense")).save(3, reference()[0],
-                                                 metadata={"arch": ARCH, "step": 3})
-    CheckpointManager(str(root / "int4")).save(5, reference("int4_palette")[0])
+@functools.lru_cache(maxsize=None)
+def reference_drafter():
+    """The reference's shrink drafter of deepseek smoke (seed 7), bridged."""
     jcfg = jconfigs.get_smoke(ARCH)
     dparams = jax.jit(jbuild(jdraft_of(jcfg)).init)(jax.random.PRNGKey(7))
+    return dparams, params_from_numpy(jax.tree.map(np.asarray, dparams),
+                                      draft_of(configs.get_smoke(ARCH)), "cpu")
+
+
+@pytest.fixture(scope="module")
+def ckpt_root(tmp_path_factory):
+    """Checkpoints the port's manager writes of the reference's params:
+    `dense` (step 3), `int4` (step 5), the drafter `draft` and a drafter of
+    another vocab `draft_vocab`."""
+    root = tmp_path_factory.mktemp("ckpt")
+    CheckpointManager(str(root / "dense")).save(3, reference()[1],
+                                                 metadata={"arch": ARCH, "step": 3})
+    CheckpointManager(str(root / "int4")).save(5, reference("int4_palette")[1])
+    jcfg = jconfigs.get_smoke(ARCH)
     meta = {"role": "student", "arch": jcfg.name, "vocab": jcfg.vocab,
             "d_model": jcfg.d_model, "n_layers": 1, "weight_form": "fp16"}
+    dparams = reference_drafter()[1]
     CheckpointManager(str(root / "draft")).save(11, dparams, metadata=meta)
     CheckpointManager(str(root / "draft_vocab")).save(
         1, dparams, metadata=dict(meta, vocab=jcfg.vocab * 2))
@@ -121,11 +132,10 @@ def test_bf16_leaves_cross_bit_for_bit(tmp_path, members):
     the dtype) restores bit for bit, with an int32 leaf, a 0-d leaf and a
     None leaf; from the members `np.savez` stores (memory-mapped) and from
     the same members compressed (read through `np.load`)."""
-    import jax.numpy as jnp
-
     rng = np.random.default_rng(0)
-    tree = {"w": jnp.asarray(rng.normal(size=(3, 5)), jnp.bfloat16),
-            "n": {"i": jnp.arange(4, dtype=jnp.int32), "s": jnp.float32(2.5), "none": None}}
+    tree = {"w": torch.from_numpy(rng.normal(size=(3, 5))).to(torch.bfloat16),
+            "n": {"i": torch.arange(4, dtype=torch.int32), "s": torch.tensor(2.5),
+                  "none": None}}
     CheckpointManager(str(tmp_path)).save(0, tree)
     npz = tmp_path / "step_000000000" / "arrays.npz"
     if members == "compressed":
@@ -137,7 +147,7 @@ def test_bf16_leaves_cross_bit_for_bit(tmp_path, members):
                       "none": None}}
     got, _ = CheckpointReader(str(tmp_path)).restore(template)
     assert got["w"] is template["w"] and got["n"]["none"] is None
-    want = np.asarray(tree["w"]).view(np.int16)
+    want = tree["w"].view(torch.int16).numpy()
     np.testing.assert_array_equal(got["w"].view(torch.int16).numpy(), want)
     np.testing.assert_array_equal(got["n"]["i"].numpy(), np.arange(4))
     assert float(got["n"]["s"]) == 2.5
@@ -217,9 +227,7 @@ def test_cli_draft_ckpt_serves_the_distilled_drafter(ckpt_root):
     drafter = out["engine"].drafter
     assert drafter.trained and drafter.cfg.n_layers == 1
     np.testing.assert_array_equal(out["tokens"], base["tokens"])
-    jcfg = jconfigs.get_smoke(ARCH)
-    dparams = jax.jit(jbuild(jdraft_of(jcfg)).init)(jax.random.PRNGKey(7))
-    want = {p: np.asarray(x) for p, x in JModel.named_leaves(dparams)}
+    want = {p: np.asarray(x) for p, x in JModel.named_leaves(reference_drafter()[0])}
     got = _leaves(drafter.params)
     assert got.keys() == want.keys()
     for path, w in want.items():
@@ -244,8 +252,8 @@ def test_draft_ckpt_refusals(ckpt_root, tmp_path):
     with pytest.raises(ValueError, match="not both"):
         Drafter.shrink(cfg, device="cpu", params={}, ckpt=str(ckpt_root / "draft"))
     # no metadata, another width: refused by the restore
-    narrow = jdraft_of(dataclasses.replace(jconfigs.get_smoke(ARCH), d_model=32))
+    narrow = draft_of(dataclasses.replace(configs.get_smoke(ARCH), d_model=32))
     CheckpointManager(str(tmp_path / "narrow")).save(
-        0, jax.jit(jbuild(narrow).init)(jax.random.PRNGKey(0)))
+        0, build_model(narrow, device="cpu").init(torch.Generator().manual_seed(0)))
     with pytest.raises(ValueError, match="does not restore into.*has shape"):
         Drafter.shrink(cfg, device="cpu", ckpt=str(tmp_path / "narrow"))

@@ -18,6 +18,8 @@ reference's model method. The reference's deprecated `make_scheduler` shim
 is not ported.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from repro.launch.scheduler import (ChunkConfig as JChunk, PrefixConfig as JPref
                                     Request as JRequest, ServeConfig as JServe,
                                     build_scheduler as jbuild_scheduler)
 from repro.models.model import build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import AsyncExecutionStream, ExecutionStream, ProgramCache
@@ -61,7 +64,7 @@ def reference_model():
     if "model" not in _REF:
         jcfg = jconfigs.get_smoke(ARCH)
         jmodel = jbuild(jcfg, dispatcher=JDispatcher(V5E))
-        _REF["model"] = (jcfg, jmodel, jmodel.init(jax.random.PRNGKey(0)))
+        _REF["model"] = (jcfg, jmodel, init_params(jcfg))
     return _REF["model"]
 
 

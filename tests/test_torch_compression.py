@@ -17,6 +17,8 @@ the reference's routed stack; continuous greedy streams must be
 token-exact with the same dispatch kinds and ProgramCache hits and misses.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax
@@ -39,6 +41,7 @@ from repro.optim.compression import (compress_model_params as jcompress,
                                      decompress_model_params as jdecompress,
                                      matmul_view as jmatmul_view,
                                      weight_form_census as jcensus)
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
@@ -85,9 +88,7 @@ def _configs(dtype: str):
 
 
 def _jparams(dtype: str):
-    # jit: one compile instead of some hundred eagerly dispatched ops
-    return _memo(("params", dtype),
-                 lambda: jax.jit(jbuild(_configs(dtype)[0]).init)(jax.random.PRNGKey(0)))
+    return init_params(_configs(dtype)[0])
 
 
 def _jpacked(form: str, dtype: str):

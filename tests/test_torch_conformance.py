@@ -15,10 +15,20 @@ Tiering, as the reference tiers it: the first non-edge case of each row at
 its first dtype, and every edge case in fp32, stay in the fast lane; the
 rest of the sweep is marked `slow`. The dispatcher's capability gating is not
 ported yet, so no gated-route cases are generated.
+
+The VJP leg (after `tests/test_conformance.py:130-148`): each row that
+declares `make_vjp` (`anemm`, `flash`, `conv2d`, as the reference's rows
+do) is differentiated at its first non-edge case in fp32, the port's
+gradients through its kernel's autograd wrapper on the CPU against the
+reference's `jax.grad` through its Pallas kernel's custom VJP (interpret
+mode), at rtol = atol = 5e-3.
 """
+
+import _torch_threads  # noqa: F401
 
 import hashlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,3 +172,30 @@ def test_fp16_extension_matches_reference_plain(name, case_name):
     rtol, atol = tspec.tol(torch.float16)
     assert (rtol, atol) == jspec.tol(jnp.float16) == (3e-2, 3e-2)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("name", [s.name for s in jreg.all_specs() if s.make_vjp is not None])
+def test_vjp_matches_reference(name):
+    jspec, tspec = jreg.get(name), treg.get(name)
+    assert tspec.make_vjp is not None
+    case = next(c for c in jspec.cases if not c.edge)
+    bundle = jspec.make_inputs(case, jnp.float32, _seed(jspec.name, "vjp"))
+    jkernel_fn, _, jargs = jspec.make_vjp(bundle)
+    want = jax.grad(jkernel_fn, tuple(range(len(jargs))))(*jargs)
+    kernel_fn, plain_fn, args = tspec.make_vjp(_bridge(bundle))
+    assert all(a.requires_grad and a.dtype == torch.float32 for a in args)
+    got = torch.autograd.grad(kernel_fn(*args), args)
+    plain = torch.autograd.grad(plain_fn(*args), args)
+    assert len(got) == len(want)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-3, atol=5e-3,
+                                   err_msg=f"{name} VJP diverged from the reference's")
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=5e-3, atol=5e-3,
+                                   err_msg=f"{name} VJP diverged from its plain math")
+    assert native.launch_counts()[name] == 0
+
+
+def test_vjp_rows_are_the_reference_rows():
+    assert [s.name for s in treg.all_specs() if s.make_vjp is not None] == \
+        [s.name for s in jreg.all_specs() if s.make_vjp is not None] == \
+        ["anemm", "conv2d", "flash"]

@@ -12,6 +12,8 @@ and the routed `conv2d` gives the same bits fused (one route) and unfused
 end hold each against its plain version there and skip here.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

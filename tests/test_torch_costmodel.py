@@ -15,6 +15,8 @@ SSM, RG-LRU, windows and encoders, and this reaches every branch), plus the
 port's own registered configs.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 
 import pytest

@@ -19,6 +19,8 @@ has several splits; `specdec` and `specdec_tree` with equal maxima planted on
 both sides of a slice boundary, equal to their plain versions' ints.
 """
 
+import _torch_threads  # noqa: F401
+
 import inspect
 
 import numpy as np

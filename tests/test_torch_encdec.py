@@ -14,6 +14,8 @@ ProgramCache hits and misses. Also here: the gelu repair (`_ACTS["gelu"]` is
 `jax.nn.gelu`'s tanh form) and the plain gelu MLP with biases.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax
@@ -35,6 +37,7 @@ from repro.models import encdec as jencdec
 from repro.models import layers as jlayers
 from repro.models.model import Model as JModel, build_model as jbuild
 from repro.parallel.ctx import CPU_CTX
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import caches_to_numpy, params_from_numpy, tensor_from_numpy
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
@@ -90,7 +93,7 @@ def _run(dtype: str) -> dict:
         return _RUNS[dtype]
     jcfg, tcfg = _configs(dtype)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     tdisp = KernelDispatcher()
     tmodel = build_model(tcfg, tdisp, device="cpu")
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
@@ -304,7 +307,7 @@ def _serve_both() -> dict:
         return _SERVE
     jcfg = jconfigs.get_smoke(ARCH)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, jcfg.vocab, size=(L,)).astype(np.int32) for L in LENS]
     frames = list(_frames(jcfg, len(LENS), 2))

@@ -20,6 +20,8 @@ mode would double this file's time, and `test_torch_encdec.py` holds the
 port against the dispatched reference. JAX runs are memoised.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 
 import jax
@@ -32,7 +34,7 @@ from repro.core.dispatch import ExecutionStream as JStream, ProgramCache as JCac
 from repro.launch.scheduler import (ContinuousSchedule as JContinuous, Request as JRequest,
                                     SequentialSchedule as JSequential)
 from repro.models.model import build_model as jbuild
-from repro.optim.compression import compress_model_params as jcompress
+from _reference_params import packed_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream, KernelDispatcher,
@@ -62,9 +64,7 @@ def reference(form: str) -> tuple:
     sequential for the dense model."""
     jcfg, tcfg = jconfigs.get_smoke(ARCH), configs.get_smoke(ARCH)
     jmodel = jbuild(jcfg)
-    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    if form != "fp16":
-        jparams = jcompress(jparams, form)
+    jparams = packed_params(jcfg, form)
     prompts, frames = _inputs(jcfg.vocab, jcfg.frame_shape)
     stream = JStream(JCache(), target=jhal.TPU_V5E)
     kw = {"n_slots": LANES} if form != "fp16" else {}

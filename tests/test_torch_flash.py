@@ -16,6 +16,8 @@ against the first 8 of 16, bit for bit; decode and the paged decode at d 128
 and 256, the paged form bit for bit against `decode_attention(bk=bs)`.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 import inspect
 

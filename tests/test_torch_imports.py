@@ -5,6 +5,8 @@ have pulled `jax` in; an AST scan of the port's sources and `chip_smoke.py`
 rejects any import of `jax`, `jaxlib` or `repro` / `repro.*`.
 """
 
+import _torch_threads  # noqa: F401
+
 import ast
 import os
 import subprocess

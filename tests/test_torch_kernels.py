@@ -15,6 +15,8 @@ The CUDA kernels themselves run only on a card: the `cuda`-marked tests at
 the end hold each kernel against its plain version there and skip here.
 """
 
+import _torch_threads  # noqa: F401
+
 import inspect
 
 import jax.numpy as jnp

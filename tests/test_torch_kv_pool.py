@@ -23,6 +23,8 @@ card: the `cuda`-marked tests at the end hold it against its plain version
 and bit for bit against `decode_attention(bk=bs)`, and skip here.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,7 @@ from repro.kernels import compat
 from repro.kernels.flash import decode_attention as jdec
 from repro.launch.kv_pool import PagedKVPool as JPool
 from repro.models.model import build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy, tensor_from_numpy
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher
@@ -346,7 +349,7 @@ def _reference_prefill(s: int = 16):
     if "pf" not in _MEMO:
         cfg = jconfigs.get_smoke(ARCH)
         model = jbuild(cfg)
-        params = jax.jit(model.init)(jax.random.PRNGKey(0))
+        params = init_params(cfg)
         prompt = np.random.default_rng(0).integers(0, cfg.vocab, size=(1, s)).astype(np.int32)
         pf, _ = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(prompt)})
         _MEMO["pf"] = (model, params, prompt, pf)

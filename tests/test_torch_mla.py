@@ -22,6 +22,8 @@ whatever the number of lanes; the launch count of a forward (5 projections
 an MLA layer at prefill, 4 at decode).
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import functools
 
@@ -39,8 +41,8 @@ from repro.launch.scheduler import merge_prefill_caches as jmerge
 from repro.models import attention as jattn
 from repro.models.layers import rms_head_norm as jnorm
 from repro.models.model import Model as JModel, build_model as jbuild
-from repro.optim.compression import (compress_model_params as jcompress,
-                                     weight_form_census as jcensus)
+from repro.optim.compression import weight_form_census as jcensus
+from _reference_params import packed_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import KernelDispatcher
@@ -81,9 +83,7 @@ def reference(dtype: str = "float32", form: str = "fp16"):
     reference's `compress_model_params`."""
     jcfg, tcfg = _configs(dtype)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    if form != "fp16":
-        jparams = jcompress(jparams, form)
+    jparams = packed_params(jcfg, form)
     return jmodel, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
 
 
@@ -103,10 +103,10 @@ def logits_run(dtype: str, form: str) -> dict:
     jcaches = jmerge(jmodel.init_cache(B, max_len), jcaches)
     tcaches = merge_prefill_caches(tmodel.init_cache(B, max_len), tcaches)
     tok = np.argmax(np.asarray(jlg)[:, -1, :jcfg.vocab], -1).astype(np.int32)[:, None]
+    jdecode = jax.jit(jmodel.decode_step)        # one compile for every step
     for i in range(DECODE_STEPS):
         pos = np.full((B,), S + i, np.int32)
-        jcaches, jdl = jax.jit(jmodel.decode_step)(jparams, jcaches, jnp.asarray(tok),
-                                                    jnp.asarray(pos))
+        jcaches, jdl = jdecode(jparams, jcaches, jnp.asarray(tok), jnp.asarray(pos))
         tcaches, tdl = tmodel.decode_step(tparams, tcaches, torch.from_numpy(tok),
                                           torch.from_numpy(pos))
         steps.append((f"decode {i}", np.asarray(jdl), tdl.numpy()))
@@ -254,7 +254,7 @@ def test_packed_census_matches_reference(form):
     MTP module's `proj` and layer, and the head; `wq_b` / `wkv_b` dense."""
     _, jparams, tparams = reference()
     census = weight_form_census(compress_model_params(tparams, form))
-    assert census == jcensus(jcompress(jparams, form))
+    assert census == jcensus(packed_params(_configs()[0], form))
     names = {p.rsplit("/", 1)[-1] for p in census}
     assert {"wq_a", "wkv_a", "wo", "proj", "unembed"} <= names
     assert not names & {"wq_b", "wkv_b", "router"}

@@ -19,6 +19,8 @@ port. The reference runs its plain jnp model (no dispatcher) under its
   * an int4_palette serve equal to its own sequential streams; the CLI.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 
 import jax
@@ -31,6 +33,7 @@ from repro.core import hal as jhal
 from repro.core.dispatch import ExecutionStream as JStream, ProgramCache as JCache
 from repro.launch.scheduler import Request as JRequest, SequentialSchedule as JSequential
 from repro.models.model import build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream, KernelDispatcher,
@@ -61,7 +64,7 @@ def _prompts(vocab: int, lens) -> list[np.ndarray]:
 def reference():
     """(jcfg, jparams, the port's bridged params)."""
     jcfg = jconfigs.get_smoke(ARCH)
-    jparams = jax.jit(jbuild(jcfg).init)(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     return jcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                             configs.get_smoke(ARCH), "cpu")
 

@@ -9,6 +9,8 @@ must agree at 4x the `anemm` registry tolerance, as
 `tests/test_model_dispatch_parity.py` holds the routed JAX stack.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax
@@ -23,6 +25,7 @@ from repro.core.dispatch import KernelDispatcher as JDispatcher
 from repro.kernels import registry as jreg
 from repro.launch.scheduler import merge_prefill_caches as jmerge
 from repro.models.model import Model as JModel, build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import caches_from_numpy, caches_to_numpy, params_from_numpy
 from repro_torch.core.dispatch import KernelDispatcher
@@ -61,7 +64,7 @@ def _run(dtype: str) -> dict:
         return _RUNS[dtype]
     jcfg, tcfg = _configs(dtype)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     tdisp = KernelDispatcher()
     tmodel = build_model(tcfg, tdisp, device="cpu")
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")

@@ -14,6 +14,8 @@ reference's continuous schedule, continuous and sequential. JAX runs are
 memoised.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import functools
 
@@ -33,7 +35,7 @@ from repro.launch.scheduler import (ContinuousSchedule as JContinuous, Request a
 from repro.models import dispatched as jdsp
 from repro.models import moe as jmoe
 from repro.models.model import Model as JModel, build_model as jbuild
-from repro.optim.compression import compress_model_params as jcompress
+from _reference_params import packed_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
@@ -65,9 +67,7 @@ def reference(form: str = "fp16"):
     reference's `compress_model_params`."""
     jcfg, tcfg = _configs()
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    if form != "fp16":
-        jparams = jcompress(jparams, form)
+    jparams = packed_params(jcfg, form)
     return jmodel, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
 
 

@@ -20,6 +20,8 @@ the pyramid and stem shapes, on unaligned views and with NaN inputs; the
 stem conv with its GELU fused equal to conv2d, then act_lut.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 
 import numpy as np

@@ -22,6 +22,8 @@ the modelled TPU's re-prefill costs can tie differently, so the injected
 function is the fair comparison).
 """
 
+import _torch_threads  # noqa: F401
+
 import warnings
 
 import jax
@@ -35,7 +37,7 @@ from repro.core.dispatch import (ExecutionStream as JStream, KernelDispatcher as
                                  ProgramCache as JCache)
 from repro.launch.scheduler import ContinuousSchedule as JContinuous, Request as JRequest
 from repro.models.model import build_model as jbuild
-from repro.optim.compression import compress_model_params as jcompress
+from _reference_params import packed_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream,
@@ -73,9 +75,7 @@ def _models(form: str):
     def make():
         jcfg, tcfg = jconfigs.get_smoke(ARCH), configs.get_smoke(ARCH)
         jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-        jparams = _memo("jparams", lambda: jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
-        if form != "fp16":
-            jparams = jcompress(jparams, form)
+        jparams = packed_params(jcfg, form)
         tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
         return jmodel, jparams, build_model(tcfg, KernelDispatcher(), device="cpu"), tparams
     return _memo(("models", form), make)

@@ -23,6 +23,8 @@ graphs; the async stream captures on a miss; a capture survives a garbage
 collection of other programs' graphs.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import gc
 import time

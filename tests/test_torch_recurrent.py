@@ -20,6 +20,8 @@ program's logits, batch-element independence (after
 too), configs and layer groups.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import functools
 
@@ -39,6 +41,7 @@ from repro.models import rglru as jrglru
 from repro.models import ssm as jssm
 from repro.models.model import Model as JModel, build_model as jbuild
 from repro.models.transformer import layer_groups as jgroups
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import caches_to_numpy, params_from_numpy
 from repro_torch.core.dispatch import KernelDispatcher
@@ -83,7 +86,7 @@ def reference(arch: str, dtype: str = "float32"):
     """(jcfg, jmodel, jparams, the port's bridged params)."""
     jcfg, tcfg = _configs(arch, dtype)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     return jcfg, jmodel, jparams, tparams
 

@@ -26,6 +26,8 @@ runs). The reference runs its plain jnp model (no dispatcher) under its
     the sequential ones; the CLI on both archs.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import functools
 
@@ -41,6 +43,7 @@ from repro.launch.scheduler import Request as JRequest, SequentialSchedule as JS
 from repro.models.model import build_model as jbuild
 from repro.optim.compression import (compress_model_params as jcompress,
                                      weight_form_census as jcensus)
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream, KernelDispatcher,
@@ -71,7 +74,7 @@ def _prompts(vocab: int, lens) -> list[np.ndarray]:
 def reference(arch: str):
     """(jcfg, jparams, the port's bridged params)."""
     jcfg = jconfigs.get_smoke(arch)
-    jparams = jax.jit(jbuild(jcfg).init)(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     return jcfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams),
                                             configs.get_smoke(arch), "cpu")
 

@@ -12,6 +12,8 @@ are asserted first, so that a jax upgrade that changes them fails loudly.
 The `cuda` test holds the card's draws to the CPU port's; it skips here.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

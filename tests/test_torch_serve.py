@@ -9,6 +9,8 @@ with the same sequence of stream dispatches (program keys and the named lane
 writes) and the same ProgramCache hits and misses.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro.core.dispatch import (ExecutionStream as JStream, KernelDispatcher as
                                  ProgramCache as JCache)
 from repro.launch.scheduler import ContinuousSchedule as JContinuous, Request as JRequest
 from repro.models.model import build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import ExecutionStream, KernelDispatcher, ProgramCache
@@ -61,7 +64,7 @@ def _reference_and_port() -> dict:
         return _RUN
     jcfg = jconfigs.get_smoke(ARCH)
     jmodel = jbuild(jcfg, dispatcher=JDispatcher(jhal.TPU_V5E))
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    jparams = init_params(jcfg)
     prompts = _prompts(jcfg.vocab)
     max_len = max(LENS) + GEN
     jcache = JCache()

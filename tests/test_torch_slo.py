@@ -13,6 +13,8 @@ that admits as the continuous schedule does; the prefix tier under slo;
 whisper-small smoke under slo; the stream's record invariants; the CLI.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from repro.core.dispatch import (AsyncExecutionStream as JAsync, ExecutionStream
 from repro.launch.scheduler import (Request as JRequest, SequentialSchedule as JSequential,
                                     SLOSchedule as JSLO)
 from repro.models.model import build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import AsyncExecutionStream, ExecutionStream, ProgramCache
@@ -58,7 +61,7 @@ def reference_model():
     if "model" not in _REF:
         jcfg = jconfigs.get_smoke(ARCH)
         jmodel = jbuild(jcfg, dispatcher=JDispatcher(V5E))
-        _REF["model"] = (jcfg, jmodel, jmodel.init(jax.random.PRNGKey(0)))
+        _REF["model"] = (jcfg, jmodel, init_params(jcfg))
     return _REF["model"]
 
 

@@ -17,6 +17,8 @@ floors per window, the shrink rule, bad setups, the CLI), and the
 none of it timing-dependent. Tree windows: `test_torch_spec_tree.py`.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import sys
 
@@ -32,6 +34,7 @@ from repro.core.dispatch import (AsyncExecutionStream as JAsync, ExecutionStream
 from repro.launch.scheduler import Request as JRequest, SequentialSchedule as JSequential
 from repro.launch.speculative import SpeculativeSchedule as JSpec
 from repro.models.model import build_model as jbuild
+from _reference_params import init_params
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.dispatch import (AsyncExecutionStream, ExecutionStream, KernelDispatcher,
@@ -65,7 +68,7 @@ def reference_model():
     if "model" not in _REF:
         jcfg = jconfigs.get_smoke(ARCH)
         jmodel = jbuild(jcfg, dispatcher=JDispatcher(V5E))
-        _REF["model"] = (jcfg, jmodel, jmodel.init(jax.random.PRNGKey(0)))
+        _REF["model"] = (jcfg, jmodel, init_params(jcfg))
     return _REF["model"]
 
 

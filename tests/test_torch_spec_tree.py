@@ -14,6 +14,8 @@ some proposals and not others, so the rollback keeps part of a window and
 branch 1 wins some lanes.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax

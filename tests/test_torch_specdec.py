@@ -13,6 +13,8 @@ The CUDA kernels themselves run only on a card: the `cuda`-marked tests at
 the end hold each against its plain version there and skip here.
 """
 
+import _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
