@@ -101,7 +101,9 @@ def run(argv=None, *, cfg=None) -> dict:
     """Train; returns the reference's dict (`final_step`, `loss_history`
     every `--log-every` steps, `final_loss`) plus `step_s` (every step's
     wall, synchronized), `save_s` (each save's wall: the final `save`'s, and
-    an async save's snapshot), `routes` (the dispatcher's census) and
+    an async save's snapshot), `routes` (the dispatcher's census),
+    `restarts` (the repr of each exception the supervisor restarted after;
+    `loss_history` and `step_s` then hold the steps of every attempt) and
     `peak_memory_gb` on the card. `cfg` trains a given config in place of
     the registered one (its name must be that of `--arch`): the library
     entry point for a depth-cut copy."""
@@ -191,11 +193,14 @@ def run(argv=None, *, cfg=None) -> dict:
             save(args.steps, (params, opt_state), wait=True)
         return step
 
-    final = run_with_restarts(training_run, policy=RestartPolicy(max_restarts=2))
+    restarts: list[str] = []
+    final = run_with_restarts(training_run, policy=RestartPolicy(max_restarts=2),
+                              on_restart=lambda n, e: restarts.append(repr(e)))
     pipe_src.close()
     out = {"final_step": final, "loss_history": history,
            "final_loss": history[-1] if history else float("nan"),
-           "step_s": step_s, "save_s": save_s, "routes": dispatcher.census()}
+           "step_s": step_s, "save_s": save_s, "routes": dispatcher.census(),
+           "restarts": restarts}
     if device.type == "cuda":
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     return out

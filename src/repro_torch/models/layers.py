@@ -173,37 +173,13 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
-class _Embed(torch.autograd.Function):
-    """Row gather whose backward sums each token's rows in one fixed order.
-
-    `index_select`'s backward adds the rows of a repeated token with CUDA
-    atomics, in whatever order they land, so two steps from one state could
-    differ in the table's low bits. Here the table's gradient is one plain
-    fp32 product, one-hot(tokens)^T @ grad (TF32 off), which sums every
-    row in the same order every time."""
-
-    @staticmethod
-    def forward(ctx, table: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(flat)
-        ctx.rows = table.shape[0]
-        return table.index_select(0, flat)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        from repro_torch.kernels.anemm.ops import full_fp32
-
-        (flat,) = ctx.saved_tensors
-        onehot = (flat[:, None] == torch.arange(ctx.rows, device=flat.device)[None]).float()
-        with full_fp32():
-            return (onehot.T @ g.float()).to(g.dtype), None
-
-
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    flat = tokens.reshape(-1).long()
-    table = p["table"]
-    if torch.is_grad_enabled() and table.requires_grad:
-        return _Embed.apply(table, flat).reshape(tokens.shape + (-1,))
-    return table.index_select(0, flat).reshape(tokens.shape + (-1,))
+    """The table's rows of `tokens`. `F.embedding`'s backward on CUDA sums
+    a repeated token's rows without atomics (a per-feature loop over the
+    tokens, or a sort and a segment sum), so two steps from one state give
+    the same table gradient bit for bit; `index_select`'s backward
+    (`index_add_`) would not."""
+    return F.embedding(tokens.reshape(-1).long(), p["table"]).reshape(tokens.shape + (-1,))
 
 
 # (id(head parameter), transposed) -> (weak reference to it, its version,

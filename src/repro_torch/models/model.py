@@ -108,11 +108,12 @@ class Model:
             cfg, params["encdec"], x, positions, mode=mode, cross=cross,
             caches=caches["self"] if mode == "decode" else None)
         new_caches = None if mode == "train" else {"self": self_caches, "cross": cross}
-        return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, new_caches, None
 
     def _forward(self, params: Params, tokens: torch.Tensor, positions: torch.Tensor, *,
                  mode: str, caches=None, frames: torch.Tensor | None = None):
-        """(the final-normed hidden states, caches, the MoE balance loss)."""
+        """(the final-normed hidden states, caches, the MoE balance loss:
+        None where no layer is MoE, and always in serving modes)."""
         with dsp.use_dispatcher(self.dispatcher):
             x = embed_tokens(params["embed"], tokens).to(self.dtype)
             x, new_caches, aux = self._backbone(
@@ -141,12 +142,9 @@ class Model:
         dense param."""
         cfg = self.cfg
         tokens, targets = batch["tokens"], batch["targets"]          # (B, S)
+        lg, h, positions, aux = self._train_logits(params, batch)
         b, s = tokens.shape
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-        h, _, aux = self._forward(params, tokens, positions, mode="train",
-                                  frames=batch.get("frames"))
         with dsp.use_dispatcher(self.dispatcher):
-            lg = logits_fn(cfg, params["embed"], h)                  # fp32 (B, S, V)
             ce, z = xent(lg, targets, cfg.vocab)
             loss = ce + 1e-4 * z + 1e-2 * aux
             metrics = {"ce": ce, "zloss": z, "moe_aux": aux,
@@ -157,6 +155,26 @@ class Model:
                 metrics["mtp"] = mtp
         metrics["loss"] = loss
         return loss, metrics
+
+    def token_losses(self, params: Params, batch: dict[str, Any]) -> torch.Tensor:
+        """Each token's next-token cross entropy (B, S), fp32, through the
+        training forward: `loss`'s `ce` is their mean."""
+        lg = self._train_logits(params, batch)[0]
+        return token_xent(lg, batch["targets"], self.cfg.vocab)[0]
+
+    def _train_logits(self, params: Params, batch: dict[str, Any]):
+        """(fp32 logits (B, S, V), the final-normed hidden states, the
+        positions, the MoE balance loss or a zero) of the training forward."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+        h, _, aux = self._forward(params, tokens, positions, mode="train",
+                                  frames=batch.get("frames"))
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        with dsp.use_dispatcher(self.dispatcher):
+            lg = logits_fn(self.cfg, params["embed"], h)
+        return lg, h, positions, aux
 
     def _mtp_loss(self, params: Params, tokens: torch.Tensor, targets: torch.Tensor,
                   h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -234,6 +252,17 @@ def xent(lg: torch.Tensor, targets: torch.Tensor, vocab: int,
     without a gradient, the target's logit picked by compare-select (no
     gather), each averaged over the tokens or, with a (1, S) `mask`, over
     the unmasked ones."""
+    per_tok, z_tok = token_xent(lg, targets, vocab)
+    if mask is None:
+        return per_tok.mean(), z_tok.mean()
+    denom = torch.clamp(mask.sum() * per_tok.shape[0] / mask.shape[0], min=1.0)
+    return (per_tok * mask).sum() / denom, (z_tok * mask).sum() / denom
+
+
+def token_xent(lg: torch.Tensor, targets: torch.Tensor,
+               vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`xent`'s per-token terms: (cross entropy, squared log-normalizer),
+    each of the targets' shape."""
     lg = lg.float()
     v = lg.shape[-1]
     cols = torch.arange(v, device=lg.device)
@@ -242,12 +271,7 @@ def xent(lg: torch.Tensor, targets: torch.Tensor, vocab: int,
     lse = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
     picked = torch.sum(torch.where(cols == targets[..., None], lg,
                                    torch.zeros((), device=lg.device)), dim=-1)
-    per_tok = lse - picked
-    z_tok = lse ** 2
-    if mask is None:
-        return per_tok.mean(), z_tok.mean()
-    denom = torch.clamp(mask.sum() * per_tok.shape[0] / mask.shape[0], min=1.0)
-    return (per_tok * mask).sum() / denom, (z_tok * mask).sum() / denom
+    return lse - picked, lse ** 2
 
 
 def build_model(cfg: ModelConfig, dispatcher: KernelDispatcher | None = None, *,

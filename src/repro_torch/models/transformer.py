@@ -78,11 +78,11 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dtype,
 
 def apply_layer(cfg: ModelConfig, sig: Signature, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
-                cache: Params | None) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+                cache: Params | None) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
     """One residual block: (x, its cache or None, the MoE's load-balance
-    loss, an fp32 scalar, zero for a dense block)."""
+    loss as an fp32 scalar, or None for a dense block)."""
     kind, _ = sig
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = None
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "ssm":
         out, new_cache = ssm_lib.ssm_forward(cfg, p["mix"], h, mode=mode, cache=cache)
@@ -177,36 +177,39 @@ def remat(fn: Callable, policy: str) -> Callable:
 def apply_stack(cfg: ModelConfig, stacks: list[Params], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str,
                 caches: list[Params] | None = None
-                ) -> tuple[torch.Tensor, list[Params] | None, torch.Tensor]:
+                ) -> tuple[torch.Tensor, list[Params] | None, torch.Tensor | None]:
     """(x, caches, the MoE balance loss summed over layers). train: no
-    caches, each unit under `cfg.remat`; prefill: builds and returns stacked
-    caches; decode: updates `caches` in place and returns them."""
+    caches, each unit under `cfg.remat`, the balance loss summed (None
+    where no layer is MoE); prefill: builds and returns stacked caches;
+    decode: updates `caches` in place and returns them. Serving sums no
+    balance loss and returns None for it."""
     new_caches: list[Params] | None = None if mode == "train" else []
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = None
     for gi, (sigs, count) in enumerate(layer_groups(cfg)):
         def unit_fn(x, unit_p, unit_c, sigs=sigs):
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = None
             ncache = {}
             for j, sig in enumerate(sigs):
                 sub = f"sub{j}"
                 x, ncache[sub], a = apply_layer(
                     cfg, sig, unit_p[sub], x, positions, mode=mode,
                     cache=None if unit_c is None else unit_c[sub])
-                aux = aux + a
+                if a is not None and mode == "train":
+                    aux = a if aux is None else aux + a
             return x, ncache, aux
 
         if mode == "train":
             run = remat(lambda x, unit_p, fn=unit_fn: fn(x, unit_p, None)[::2], cfg.remat)
             for i in range(count):
                 x, aux = run(x, tree_map(lambda a: a[i], stacks[gi]))
-                aux_total = aux_total + aux
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
             continue
         per_unit = []
         for i in range(count):
             unit_p = tree_map(lambda a: a[i], stacks[gi])
             unit_c = tree_map(lambda a: a[i], caches[gi]) if caches is not None else None
-            x, ncache, aux = unit_fn(x, unit_p, unit_c)
-            aux_total = aux_total + aux
+            x, ncache, _ = unit_fn(x, unit_p, unit_c)
             per_unit.append(ncache)
         if mode == "prefill":
             new_caches.append({sub: {name: torch.stack([u[sub][name] for u in per_unit])

@@ -291,6 +291,39 @@ def test_loss_and_every_gradient_match_reference(arch):
         assert model.dispatcher.census()[("conv2d", "torch")] == 2
 
 
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "whisper-small"])
+def test_token_losses_average_to_the_loss_ce(arch):
+    """`Model.token_losses` is the training forward's per-token cross
+    entropy: (B, S), and its mean is the `ce` of `Model.loss`."""
+    _, tcfg = _configs(arch)
+    params = params_from_numpy(init_params(arch), tcfg, "cpu")
+    model = build_model(tcfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
+    with torch.no_grad():
+        per_tok = model.token_losses(params, batch)
+        _, metrics = model.loss(params, batch)
+    assert per_tok.shape == batch["tokens"].shape and per_tok.dtype == torch.float32
+    assert torch.equal(per_tok.mean(), metrics["ce"])
+
+
+def test_serving_sums_no_balance_loss():
+    """dbrx smoke (MoE): the training forward returns the balance loss
+    summed over layers; prefill and decode return None for it."""
+    _, tcfg = _configs("dbrx-132b")
+    params = params_from_numpy(init_params("dbrx-132b"), tcfg, "cpu")
+    model = build_model(tcfg, device="cpu")
+    tokens = torch.from_numpy(_batch(tcfg)["tokens"])
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    with torch.no_grad():
+        _, _, aux = model._forward(params, tokens, positions, mode="train")
+        _, caches, served = model._forward(params, tokens, positions, mode="prefill")
+        _, _, decoded = model._forward(params, tokens[:, -1:], positions[:, -1:],
+                                       mode="decode", caches=model.init_cache(b, s + 1))
+    assert aux is not None and float(aux) > 0
+    assert served is None and decoded is None and caches is not None
+
+
 def test_remat_policies_give_the_same_values():
     """`full` (the smoke configs' own), `dots` and `none` on dbrx smoke:
     the same loss and gradients, bit for bit."""

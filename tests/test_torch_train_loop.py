@@ -9,7 +9,8 @@ default policy is fresh per call; the straggler detector flags the slow
 host; a torn write is ignored. Checkpoints cross both ways: the port's
 `CheckpointManager` writes a training state (bf16 params, fp32 moments, an
 int32 step, a packed weight, a None leaf) that the reference's manager
-restores bit for bit, and restores what the reference's manager wrote.
+restores bit for bit, and restores what the reference's manager wrote (its
+packed int4_palette MLP and a None leaf among them).
 """
 
 import _torch_threads  # noqa: F401
@@ -27,6 +28,7 @@ import torch
 from repro.checkpoint.checkpoint import CheckpointManager as JManager, _flatten as jflatten
 from repro.core.hal import WeightForm as JForm
 from repro.models.dispatched import DispatchedWeight as JPacked
+from repro.optim.compression import compress_model_params as jcompress
 from repro_torch import configs
 from repro_torch.checkpoint.checkpoint import CheckpointManager, _flatten as port_flatten
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -51,6 +53,7 @@ def test_cli_loss_decreases_at_smoke():
     hist = out["loss_history"]
     assert len(hist) == 6 and out["final_step"] == 60 and len(out["step_s"]) == 60
     assert hist[-1] < hist[0] - 0.5, hist
+    assert out["restarts"] == []
     assert np.isfinite(hist[-1]) and out["final_loss"] == hist[-1]
     assert set(out["routes"]) == {("anemm", "torch"), ("flash", "torch")}
 
@@ -117,6 +120,7 @@ def test_cli_resumes_a_crashed_run_from_its_checkpoint(tmp_path, monkeypatch):
     out = _cli(*args, "--ckpt-dir", str(tmp_path / "crashed"))
     # logged: steps 1..8, then 6..10 from step 5's checkpoint
     assert crashed["n"] == 1 and out["final_step"] == 10 and len(out["loss_history"]) == 13
+    assert out["restarts"] == [repr(RuntimeError("injected node failure"))]
     want = CheckpointManager(str(tmp_path / "straight"))
     got = CheckpointManager(str(tmp_path / "crashed"))
     assert got.steps() == want.steps() == [5, 10]
@@ -241,20 +245,33 @@ def test_the_reference_restores_what_the_port_writes(tmp_path):
 
 def test_the_port_restores_what_the_reference_writes(tmp_path):
     """The reference saves a (params, opt_state)-shaped tree, bf16 and fp32
-    leaves and an int32 step; the port's manager restores it in place, bit
-    for bit."""
+    leaves, an int32 step, an MLP packed by its own `compress_model_params`
+    (int4_palette) and a None leaf; the port's manager restores it in place
+    into a template packed by the port, bit for bit."""
     rng = np.random.default_rng(4)
+    wg = rng.normal(size=(64, 32)).astype(np.float32)
     jtree = ({"embed": {"table": jnp.asarray(rng.normal(size=(6, 4)), jnp.bfloat16)},
-              "layers": [{"w": jnp.asarray(rng.normal(size=(4, 4)), jnp.float32)}]},
+              "layers": [{"w": jnp.asarray(rng.normal(size=(4, 4)), jnp.float32)}],
+              "packed": jcompress({"mlp": {"wg": jnp.asarray(wg)}}, "int4_palette"),
+              "none": None},
              {"m": {"x": jnp.asarray(rng.normal(size=(3,)), jnp.float32)},
               "step": jnp.int32(9)})
     JManager(str(tmp_path)).save(9, jtree, metadata={"role": "trainer"})
+    packed = compress_model_params({"mlp": {"wg": torch.zeros(64, 32)}}, "int4_palette")
     template = ({"embed": {"table": torch.zeros(6, 4, dtype=torch.bfloat16)},
-                 "layers": [{"w": torch.zeros(4, 4)}]},
+                 "layers": [{"w": torch.zeros(4, 4)}], "packed": packed, "none": None},
                 {"m": {"x": torch.zeros(3)}, "step": torch.zeros((), dtype=torch.int32)})
     mgr = CheckpointManager(str(tmp_path))
     got, step = mgr.restore(template)
     assert step == 9 and mgr.metadata() == {"role": "trainer"}
+    assert got[0]["none"] is None
+    jw, w = jtree[0]["packed"]["mlp"]["wg"], got[0]["packed"]["mlp"]["wg"]
+    assert isinstance(w, DispatchedWeight) and w.form.value == jw.form.value == "int4_palette"
+    assert w.payload.keys() == jw.payload.keys()
+    for name, arr in jw.payload.items():
+        want = np.asarray(arr)
+        have = w.payload[name].numpy()
+        assert have.dtype == want.dtype and have.tobytes() == want.tobytes(), name
     assert got[0]["embed"]["table"] is template[0]["embed"]["table"]
     np.testing.assert_array_equal(got[0]["embed"]["table"].view(torch.int16).numpy(),
                                   np.asarray(jtree[0]["embed"]["table"]).view(np.int16))
