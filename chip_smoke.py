@@ -68,6 +68,9 @@ printing one JSON line for each:
                the float16 decode and paged decode (every registry case,
                and timed at ane-paper's shape: 8 lanes, 8/8 heads, d 128,
                544 slots; decode's 8 of 16 lanes and reruns bit for bit);
+               the public wrappers `PaletteLinear` and `SparseLinear`, one
+               call each on a gate/up weight packed on the card, one launch
+               of their kernel against its plain version (`packed_linear`);
   4. parity  — the smoke model's prefill and decode logits on the card
                (kernels) against the same weights on the CPU (plain versions),
                dense and packed (int4_palette, sparse), fp32 and bf16; the
@@ -210,11 +213,13 @@ printing one JSON line for each:
                the head for a dense arch, 4 + 3 per expert bank for dbrx's
                MoE layers; deepseek 797 a decode step, 801 a prefill), tok/s,
                the decode step's median, the digest, the peak memory;
-  17. recurrent — recurrentgemma-9b and mamba2-1.3b through spec (shrink,
-               chain and two branches), chunked prefill and (the hybrid)
-               the prefix pool; then the long-window run: recurrentgemma on
-               2 lanes, prompts of 2,304 and 3,000, its rings' positions
-               checked at each lane's finish;
+  17. recurrent — recurrentgemma-9b and mamba2-1.3b at 8 layers (full
+               width; the cut and its reason on each record, as `reduced`)
+               through spec (shrink, chain and two branches), chunked
+               prefill and (the hybrid) the prefix pool, each against a
+               continuous serve at the same depth; then the long-window
+               run: recurrentgemma whole on 2 lanes, prompts of 2,304 and
+               3,000, its rings' positions checked at each lane's finish;
   18. mla    — deepseek-v3-671b at 4 layers without its MTP module: a
                continuous serve of 8 prompts of one prefill bucket, whose
                params the port's `CheckpointManager` writes in the
@@ -241,7 +246,32 @@ printing one JSON line for each:
                after the step-5 checkpoint, the supervisor's restart from it
                and 5 more, the logged losses and every param and moment
                compared (bit for bit expected; any leaf whose gradient is
-               not the same twice is named).
+               not the same twice is named);
+  20. distill — `launch/distill.py` through its CLI entry point at full
+               tinyllama-1.1b with the reference's defaults but lr 3e-4
+               and 128 tokens (at the defaults the teacher learns no
+               motif): a 22-layer teacher trained 150 steps and a
+               one-layer student (`draft_of`) distilled 300 steps against
+               its logits (8 x 128 tokens), checkpoints under build/. Step
+               0 of the distillation through the kernels against the plain
+               versions on the card (the teacher's logits, each token's KL
+               and CE, every student gradient leaf) and the loss's terms
+               against torch's own KL and CE at T 1 and 2; both runs whole
+               (every step taken once, nothing restarted, the teacher's
+               loss falling, every route cuda, every launch the steps
+               imply); on held-out prompts cut two tokens into a motif the
+               teacher completes the motifs and the distilled student's
+               agreement (the reference's rollout and on the motif tails)
+               is above the same student's at init; `load_teacher`
+               restoring the teacher bit for bit and the student's
+               metadata the reference's; then the teacher served through
+               `--ckpt` on 8 such prompts, continuous (more than one
+               distinct token) and as the target of `--schedule spec
+               --draft shrink --draft-ckpt` at branches 1 and 2, with the
+               distilled student, with the random-init one (its acceptance
+               must be lower) and with the student packed as int4_palette
+               (the drafter's matmuls on palette): every spec stream equal
+               to the continuous one, exact launches.
 
 Then a `script` line with the whole run's seconds, a `kernels` line with
 every kernel's numbers, the card's name and power limit as nvidia-smi
@@ -310,11 +340,15 @@ from repro_torch.kernels.flash.flash_attention import HEAD_DIMS as FLASH_HEAD_DI
 from repro_torch.kernels.flash.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.specdec import specdec as sd  # noqa: E402  (the module)
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.kernels.palette.ops import PaletteLinear  # noqa: E402
+from repro_torch.kernels.palette.ref import palette_matmul_ref  # noqa: E402
+from repro_torch.kernels.sparse.ops import SparseLinear  # noqa: E402
+from repro_torch.kernels.sparse.ref import sparse_matmul_ref  # noqa: E402
+from repro_torch.launch import distill, serve, train  # noqa: E402
 from repro_torch.launch.scheduler import (ChunkConfig, ContinuousSchedule,  # noqa: E402
                                           Request, ServeConfig, SLOSchedule, TokenSampler,
                                           build_scheduler, merge_prefill_caches)
-from repro_torch.launch.speculative import Drafter, SpeculativeSchedule  # noqa: E402
+from repro_torch.launch.speculative import Drafter, SpeculativeSchedule, draft_of  # noqa: E402
 from repro_torch.models import dispatched as dsp  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -375,11 +409,18 @@ ROWS_ARCHS = ("granite-8b", "chameleon-34b", "dbrx-132b", "recurrentgemma-9b", "
 MLA_ARCH = "deepseek-v3-671b"
 MLA_LENS = "64,72,80,88,96,104,112,120"
 # the recurrent families (the RG-LRU hybrid with sliding-window MQA, the
-# SSD), each whole on the card: the archs phase serves them, the recurrent
-# phase then serves them through spec (chain and tree), chunked prefill and
+# SSD): the archs phase serves each whole, the recurrent phase serves each
+# at RECURRENT_LAYERS through spec (chain and tree), chunked prefill and
 # (the hybrid) the prefix pool, and the long-window run rolls and wraps the
-# hybrid's 2,048-slot rings
+# whole hybrid's 2,048-slot rings
 RECURRENT_ARCHS = ("recurrentgemma-9b", "mamba2-1.3b")
+# the recurrent phase's depth: the hybrid's two whole periods and its two
+# trailing layers (the whole is 12 periods and 2), the SSD's first 8 layers
+RECURRENT_LAYERS = {"recurrentgemma-9b": 8, "mamba2-1.3b": 8}
+RECURRENT_CUT = ("the spec rollback, the chunk's staged state and the pool's anchors are per "
+                 "layer, the same in every layer of a kind; the archs phase and the "
+                 "long-window run serve the config whole; whole, the phase took ~180 s of "
+                 "the script's 1,200 s")
 # recurrentgemma's spec runs take prompts of one prefill bucket (64): every
 # captured program keeps a 4.2 GB fp32 copy of the 256,000 x 4,096 head in
 # its private pool (target and drafter alike), and the serve phase's five
@@ -469,6 +510,42 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 128
 TRAIN_LOSS_RTOL, TRAIN_TOKEN_ATOL, TRAIN_GRAD_RTOL = 1.6e-4, 0.16, 0.06
 TRAIN_RESUME_K, TRAIN_RESUME_LAYERS = 5, 2
 TRAIN_RESUME_TOL = 1e-5
+
+# the distill phase: launch/distill.py through its CLI entry point at full
+# tinyllama-1.1b (the teacher its 22 layers, the student `draft_of`'s one)
+# with the reference's DEFAULTS (150 teacher steps, 300 student steps of 8
+# sequences, kl_weight 0.75, T 1) but for DISTILL_FLAGS: lr 3e-4 and 128
+# tokens. At the defaults' lr 3e-3 and 64 tokens, and at lr 1e-3 or 3e-4
+# with 64, the teacher learns no motif in 150 steps (none of the motif
+# tails below; loss 5.2-5.7, the unigram's); at lr 3e-4 with 128 tokens,
+# or lr 1e-3 over 300 steps, it completes every tail (loss 3.2-3.5). Step
+# 0 of the distillation through the kernels against the plain versions on
+# the card: the teacher's logits within DISTILL_LOGIT_RTOL of their largest
+# |value|, each token's KL and CE within DISTILL_KL_ATOL and
+# DISTILL_CE_ATOL, each student gradient leaf within DISTILL_GRAD_RTOL of
+# its largest |value|, and `distill_terms` against torch's own KL and CE
+# within DISTILL_FORMULA_RTOL. Each limit is about 2.5x the gap measured on
+# an H100 with this recipe (3.6e-3 of the largest logit, 0.018 on a
+# per-token KL near 7.6, 0.025 on a per-token CE near 10.9, 0.011 at the
+# worst of 12 leaves; the inputs are seeded and the kernels deterministic,
+# so the gaps repeat); the formula's gaps were 0, 0 and 6.7e-8, and a KL
+# written without T^2, with the student's logits not divided by T, or
+# reversed moves one of them to 0.37-0.77. On DISTILL_PROMPTS held-out
+# prompts of DISTILL_PROMPT_LEN tokens cut two tokens into a motif
+# (`motif_prompts`), the teacher's rollout must complete at least
+# DISTILL_TAIL_HITS of the motif tails, with its most frequent token at
+# most DISTILL_TOP_SHARE of the stream (measured 1.0 and 0.5: a tail is 6
+# of 12 steps), and the distilled student's agreement (the reference's
+# `rollout_agreement`, and on the tails) at least DISTILL_AGREE_MARGIN above
+# the same student's at its init (measured 1.0 against 0.0 for both)
+DISTILL_ARCH = "tinyllama-1.1b"
+DISTILL_FLAGS = {"lr": 3e-4, "seq": 128}
+DISTILL_LOGIT_RTOL, DISTILL_KL_ATOL = 9e-3, 0.045
+DISTILL_CE_ATOL, DISTILL_GRAD_RTOL = 0.065, 0.027
+DISTILL_FORMULA_RTOL = 1e-4
+DISTILL_TAIL_HITS, DISTILL_TOP_SHARE = 0.75, 0.625
+DISTILL_AGREE_MARGIN = 0.5
+DISTILL_PROMPTS, DISTILL_PROMPT_LEN = 8, 64
 
 TIMING_REPS = 20
 # traced serve rounds the profile phase may take to get one whose trace
@@ -1490,10 +1567,39 @@ def check_kernels(cfg, timer) -> dict:
     emit("head_widen", shape=list(unembed.shape),
          ms=timer.device_ms(lambda: unembed.to(torch.float32)),
          bytes=unembed.numel() * (2 + 4))
+    check_packed_linears(cfg, rng, failures)
     if failures:
         raise AssertionError("kernels disagree with their plain versions:\n"
                              + "\n".join(failures))
     return headline
+
+
+def check_packed_linears(cfg, rng, failures: list) -> None:
+    """The public wrappers `PaletteLinear` and `SparseLinear` (pack once,
+    call): a gate/up weight of full tinyllama-1.1b packed on the card, one
+    call on 8 bf16 rows each; the call must launch the wrapper's kernel
+    exactly once (the route cuda) and agree with the kernel's plain version
+    at the registry's tolerance. Their byte counts go beside."""
+    k, n = matmul_shapes(cfg)["gate_up"]
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.02).cuda()
+    a = torch.from_numpy(rng.normal(size=(8, k))).to("cuda", torch.bfloat16)
+    for kernel, cls, plain in (
+            ("palette", PaletteLinear, lambda lin: palette_matmul_ref(a, lin.packed, lin.lut)),
+            ("sparse", SparseLinear, lambda lin: sparse_matmul_ref(a, lin.values,
+                                                                  lin.selector))):
+        lin = cls.pack(w)
+        native.reset_launch_counts()
+        out = lin(a)
+        torch.cuda.synchronize()
+        launched = native.launch_counts()[kernel]
+        err, ok = _compare(out, plain(lin), registry.get(kernel).tol(torch.bfloat16))
+        ok = ok and launched == 1
+        emit("packed_linear", wrapper=cls.__name__, kernel=kernel, route="cuda",
+             shape=[8, k, n], dtype="bfloat16", launches=launched, max_abs_err=err,
+             tol=list(registry.get(kernel).tol(torch.bfloat16)), hbm_bytes=lin.hbm_bytes(),
+             dense_bytes=lin.dense_bytes(), ok=ok)
+        if not ok:
+            failures.append(f"{cls.__name__}: {launched} launches, max abs err {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -1680,7 +1786,7 @@ def main(argv: list[str]) -> int:
     headline["paged_decode_attention"], launches["paged_decode_attention"] = \
         serve_prefix(cfg, timer)
     for draft, branches in SPEC_RUNS:
-        run = serve_spec(cfg, draft, branches, tokens["fp16"])
+        run, _ = serve_spec(cfg, draft, branches, tokens["fp16"])
         if (draft, branches) == ("self", 1):
             launches["specdec"] = run["specdec"]
         if branches > 1:
@@ -1694,10 +1800,11 @@ def main(argv: list[str]) -> int:
     serve_encoder_spec(encoder_tokens)
     arch_tokens = {name: serve_arch(name) for name, _ in ARCH_RUNS}
     for name in RECURRENT_ARCHS:
-        serve_recurrent(name, arch_tokens[name])
+        serve_recurrent(name)
     serve_long_window()
     serve_mla(arch_tokens[MLA_ARCH])
     run_train_phase()
+    run_distill_phase()
     emit("script", seconds=time.perf_counter() - T0)
 
     kernels = []
@@ -2462,17 +2569,24 @@ def run_recurrent_graph_checks(cfg) -> None:
 
 def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
                sampling: str = "greedy", lens: str = SERVE_LENS,
-               rounds: int = SERVE_ROUNDS) -> dict:
+               rounds: int = SERVE_ROUNDS, extra: tuple[str, ...] = (),
+               prompts: list[list[np.ndarray]] | None = None,
+               draft_form: str = "fp16", label: str = "") -> tuple[dict, dict]:
     """Full tinyllama-1.1b (or `cfg`, in its own dtype; fp16 form) through
     the speculative schedule with `draft` and `branches` on the serve
-    phase's prompts (or `lens`), `rounds` rounds; returns the launch counts
-    of this run alone, after checking the tokens against the continuous
-    run's, the routes, the acceptance, the dispatches per window and every
-    kernel's launches: anemm once per matmul of every forward of either
-    model (`matmuls_per_forward`), flash once per flash-prefilled layer of
-    either model per admission prefill, decode_attention once per attention
-    layer of every decode forward of either model (`attention_layers`),
-    specdec once per chain window and specdec_tree once per tree window."""
+    phase's prompts (or `lens`, or the given rounds of `prompts`), `rounds`
+    rounds, `extra` added to the CLI's argv (`--ckpt`, `--draft-ckpt`);
+    returns (the launch counts of this run alone, the run's output), after
+    checking the tokens against the continuous run's, the routes, the
+    acceptance, the dispatches per window and every kernel's launches:
+    anemm once per matmul of every forward of the target, the drafter's
+    form's kernel (`draft_form`: a packed `--draft-ckpt`) once per matmul
+    of every drafter forward (`matmuls_per_forward`), flash once per
+    flash-prefilled layer of either model per admission prefill,
+    decode_attention once per attention layer of every decode forward of
+    either model (`attention_layers`), specdec once per chain window and
+    specdec_tree once per tree window. A random-init shrink drafter (no
+    `--draft-ckpt`) must be rejected somewhere."""
     release_memory()
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
@@ -2481,10 +2595,14 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
     else:
         out = serve.run(serve_argv(cfg, rounds, "fp16", "spec", lens=lens) + [
             "--draft", draft, "--draft-branches", str(branches),
-            "--draft-depth", str(SPEC_DEPTH), "--sampling", sampling], cfg=cfg)
+            "--draft-depth", str(SPEC_DEPTH), "--sampling", sampling, *extra], cfg=cfg,
+            prompts=prompts)
+    if prompts is not None:
+        lens, rounds = ",".join(str(len(p)) for p in prompts[0]), len(prompts)
     launches = native.launch_counts()
     engine = out["engine"]
-    tag = f"spec {draft} x{branches}" + ("" if sampling == "greedy" else f" {sampling}")
+    tag = f"spec {draft} x{branches}" + ("" if sampling == "greedy" else f" {sampling}") \
+        + (f" {label}" if label else "")
     graphs = graph_counts(tag, out, ("spec_admit_slot", "spec_reset_slot"))
     if not np.array_equal(out["tokens"], want_tokens):
         bad = int((out["tokens"] != want_tokens).any(axis=1).sum())
@@ -2495,7 +2613,8 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
         raise AssertionError(f"{tag} routes {out['routes']}: every route must be cuda")
     if draft == "self" and out["acceptance_rate"] != 1.0:
         raise AssertionError(f"{tag}: acceptance {out['acceptance_rate']}, want 1.0")
-    if draft == "shrink" and not out["accepted"] < out["proposed"]:
+    if draft == "shrink" and "--draft-ckpt" not in extra \
+            and not out["accepted"] < out["proposed"]:
         raise AssertionError(f"{tag}: accepted {out['accepted']} of {out['proposed']}")
     if draft == "early_exit" and not (0 < out["accepted"] < out["proposed"]
                                       and out["partial_accepts"] > 0
@@ -2518,17 +2637,18 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
     t_fwd = n_prefill + out["catchup_steps"] + out["verify_steps"]
     d_fwd = n_prefill + out["catchup_steps"] + out["draft_steps"]
     want = {k: 0 for k in launches}
-    want.update({"anemm": anemm_launches(cfg, n_prefill, t_fwd - n_prefill)
-                 + anemm_launches(dcfg, n_prefill, d_fwd - n_prefill),
+    want.update({"anemm": anemm_launches(cfg, n_prefill, t_fwd - n_prefill),
                  "flash": (flash_t + flash_d) * n_prefill,
                  "decode_attention": attn_t * (t_fwd - n_prefill) + attn_d * (d_fwd - n_prefill),
                  "specdec": kinds.get("chain", 0), "specdec_tree": kinds.get("tree", 0)})
+    want[FORM_KERNEL[draft_form]] += anemm_launches(dcfg, n_prefill, d_fwd - n_prefill)
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
     walls = {"draft": [r.wall_s for r in recs if r.key in engine._draft_keys],
              "verify": [r.wall_s for r in recs if r.key in engine._verify_keys]}
     emit("spec", config=cfg.name, dtype=cfg.dtype, weight_form="fp16", drafter=draft,
-         sampling=sampling,
+         sampling=sampling, run=label or None, draft_form=draft_form,
+         drafter_trained=engine.drafter.trained,
          drafter_layers=l_d, draft_branches=branches, draft_depth=SPEC_DEPTH,
          lanes=len(want_tokens), prompt_lens=lens, gen=SERVE_GEN, rounds=rounds,
          tok_per_s=out["tok_per_s"], wall_s=out["wall_s"], tokens_match_continuous=True,
@@ -2546,7 +2666,7 @@ def serve_spec(cfg, draft: str, branches: int, want_tokens: np.ndarray,
          routes={f"{k}/{b}": n for (k, b), n in out["routes"].items()},
          launches=launches, **graphs,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, out
 
 
 def early_exit_drafter(model, params, cfg, n_layers: int) -> Drafter:
@@ -2668,15 +2788,17 @@ def digest(tokens: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(tokens).tobytes()).hexdigest()
 
 
-def serve_schedule(cfg, tag: str, argv: list[str], want_tokens: np.ndarray | None) -> dict:
+def serve_schedule(cfg, tag: str, argv: list[str], want_tokens: np.ndarray | None,
+                   prompts: list[list[np.ndarray]] | None = None) -> dict:
     """One serve of full tinyllama-1.1b (fp16 form) through the CLI's entry
-    point, checked: tokens equal `want_tokens` (when given), every route
-    cuda, captures = misses with no recapture, exact launches; the decode
-    steps are the slo schedule's fused programs or the continuous decode
-    program. Returns the run's output."""
+    point (on the given rounds of `prompts`, if any), checked: tokens equal
+    `want_tokens` (when given), every route cuda, captures = misses with no
+    recapture, exact launches; the decode steps are the slo schedule's
+    fused programs or the continuous decode program. Returns the run's
+    output."""
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
-    out = serve.run(argv)
+    out = serve.run(argv, prompts=prompts)
     launches = native.launch_counts()
     engine = out["engine"]
     graphs = graph_counts(tag, out, NAMED_RECORDS)
@@ -2696,7 +2818,9 @@ def serve_schedule(cfg, tag: str, argv: list[str], want_tokens: np.ndarray | Non
     done = sorted(r.complete_ts for r in steps)
     gaps = [b - a for a, b in zip(done, done[1:])]
     emit("slo_serve", run=tag, config=cfg.name, dtype=cfg.dtype, schedule=out["schedule"],
-         sampling=out["sampling"], lanes=len(out["tokens"]), prompt_lens=SERVE_LENS,
+         sampling=out["sampling"], lanes=len(out["tokens"]),
+         prompt_lens=SERVE_LENS if prompts is None else ",".join(str(len(p))
+                                                                 for p in prompts[0]),
          gen=SERVE_GEN, tokens_sha256=digest(out["tokens"]), tok_per_s=out["tok_per_s"],
          wall_s=out["wall_s"], decode_steps=n_decode, prefills=n_prefill,
          decode_median_ms=statistics.median(walls) * 1e3 if walls else None,
@@ -3493,30 +3617,31 @@ def serve_arch(name: str, lens: str = SERVE_LENS, record: str = "arch_serve",
 # ---------------------------------------------------------------------------
 
 
-def serve_recurrent(name: str, arch_tokens: np.ndarray) -> None:
-    """A recurrent config whole (its archs-phase streams `arch_tokens`):
-    spec with the shrink drafter at depth 4, chain and two branches
-    (`serve_spec`: the continuous streams, launches exact; the untrained
-    drafter rejects, so the recurrent rollback runs) on its spec prompts
-    (RECURRENT_SPEC_LENS; their continuous streams from a serve of the same
-    prompts where they are not the serve phase's), chunked prefill
-    (`serve_recurrent_chunked`) and, for the hybrid, the prefix pool
+def serve_recurrent(name: str) -> None:
+    """A recurrent config at RECURRENT_LAYERS (full width): continuous
+    serves of its spec prompts (RECURRENT_SPEC_LENS) and of the serve
+    phase's; spec with the shrink drafter at depth 4, chain and two
+    branches (`serve_spec`: the continuous streams, launches exact; the
+    untrained drafter rejects, so the recurrent rollback runs), chunked
+    prefill (`serve_recurrent_chunked`) and, for the hybrid, the prefix pool
     (`prefix_serves`: pooled streams = pool-less, the recurrent state
     through the anchors)."""
-    cfg = configs.get_config(name)
+    full = configs.get_config(name)
+    cfg = dataclasses.replace(full, n_layers=RECURRENT_LAYERS[name])
+    cut = (cfg, {"n_layers": cfg.n_layers, "of": full.n_layers, "why": RECURRENT_CUT})
     lens = RECURRENT_SPEC_LENS[name]
-    want = arch_tokens if lens == SERVE_LENS else \
-        serve_arch(name, lens, record="recurrent_continuous")
+    want = serve_arch(name, lens, record="recurrent_continuous", cut=cut)
     for branches in (1, 2):
         serve_spec(cfg, "shrink", branches, want, lens=lens, rounds=1)
-    serve_recurrent_chunked(cfg, arch_tokens)
+    serve_recurrent_chunked(cfg, want if lens == SERVE_LENS else serve_arch(
+        name, SERVE_LENS, record="recurrent_continuous", cut=cut))
     if cfg.family == "hybrid":
         prefix_serves(cfg)
 
 
 def serve_recurrent_chunked(cfg, want_tokens: np.ndarray,
                             record: str = "recurrent_chunked") -> None:
-    """`cfg` whole through the serve CLI with `--prefill-chunk 64` on the
+    """`cfg` through the serve CLI with `--prefill-chunk 64` on the
     serve phase's prompts, one round: the chunk program carries the
     recurrent state (and the ring) in its staging row. Routes cuda, one
     chunk program, launches exact (`check_serve_launches`); the streams equal
@@ -4037,6 +4162,352 @@ def run_train_phase() -> None:
         release_memory()
         profile_train_step(cfg)
         train_resume(cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release_memory()
+
+
+# ---------------------------------------------------------------------------
+# the distill phase: a teacher and a distilled student at full width, served
+# as target and drafter
+# ---------------------------------------------------------------------------
+
+
+def distill_launches(cfg, teacher_steps: int, steps: int, eval_steps: int) -> tuple:
+    """(the launches `distill.run` makes, its launches a step by kernel):
+    a train step runs the forward and, under full remat, every layer's
+    matmuls and attention again (the head is not recomputed); a student
+    step adds one teacher forward without a gradient; each rollout step
+    one forward of either model."""
+    dcfg = draft_of(cfg)
+
+    def fwd(c):
+        return {"anemm": matmuls_per_forward(c), "flash": attention_layers(c)[0]}
+
+    def step(c):
+        return {"anemm": 2 * matmuls_per_forward(c) - 1, "flash": 2 * attention_layers(c)[0]}
+
+    def add(*ds):
+        return {k: sum(d[k] for d in ds) for k in ds[0]}
+
+    per = {"teacher_step": step(cfg), "student_step": add(fwd(cfg), step(dcfg)),
+           "rollout_step": add(fwd(cfg), fwd(dcfg))}
+    total = {k: teacher_steps * per["teacher_step"][k] + steps * per["student_step"][k]
+             + eval_steps * per["rollout_step"][k] for k in ("anemm", "flash")}
+    return total, per
+
+
+def distill_recipe() -> dict:
+    """The reference's DEFAULTS with the phase's DISTILL_FLAGS."""
+    return {**distill.DEFAULTS, **DISTILL_FLAGS}
+
+
+def motif_prompts(cfg, n: int, length: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n held-out prompts of `length` tokens, each one's motif tail): the
+    corpus's prompt stream (`prompt_batch`, seed 0, the teacher's motifs)
+    cut two tokens into a motif planted whole, so the data continues each
+    prompt with that motif's other MOTIF_LEN - 2 tokens. A prompt of
+    `prompt_batch` itself ends on a background token (no motif is planted
+    over its last position), after which the likeliest token is the Zipf
+    head, token 0, for every context: a teacher that knows every motif
+    still continues such a prompt greedily with 0 alone."""
+    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=length, global_batch=n))
+    motifs, mlen = src._motifs, src.cfg.motif_len
+    prompts, tails = [], []
+    step = 0
+    while len(prompts) < n:
+        for row in src.prompt_batch(step, n, 2 * length):
+            hits = [(st, m) for st in range(len(row) - mlen, length - 3, -1)
+                    for m in range(len(motifs)) if np.array_equal(row[st:st + mlen], motifs[m])]
+            if hits and len(prompts) < n:
+                st, m = hits[0]
+                prompts.append(row[st + 2 - length:st + 2])
+                tails.append(motifs[m][2:])
+        step += 1
+    return np.stack(prompts).astype(np.int32), np.stack(tails)
+
+
+@torch.no_grad()
+def motif_rollout(cfg, teacher, tparams, students: dict, prompts: np.ndarray,
+                  steps: int) -> tuple[np.ndarray, dict]:
+    """The teacher's greedy rollout of `steps` tokens from `prompts`
+    (full-context forwards, as `distill.rollout_agreement`) and each
+    student's top-1 at every step over the true vocab: (the teacher's
+    stream, {name: the student's picks})."""
+    ctx = torch.from_numpy(prompts).to(teacher.device)
+    picks = {name: [] for name in students}
+    stream = []
+    for _ in range(steps):
+        t_pick = torch.argmax(distill._full_logits(teacher, tparams, ctx)[:, -1, :cfg.vocab],
+                              dim=-1)
+        for name, (student, sparams) in students.items():
+            picks[name].append(torch.argmax(
+                distill._full_logits(student, sparams, ctx)[:, -1, :cfg.vocab], dim=-1))
+        stream.append(t_pick)
+        ctx = torch.cat([ctx, t_pick[:, None].to(ctx.dtype)], dim=1)
+    return (torch.stack(stream, 1).cpu().numpy(),
+            {name: torch.stack(p, 1).cpu().numpy() for name, p in picks.items()})
+
+
+def stream_stats(tokens: np.ndarray) -> dict:
+    """Distinct tokens of a served or rolled-out stream and the share of
+    its most frequent one."""
+    _, counts = np.unique(tokens, return_counts=True)
+    return {"distinct_tokens": len(counts), "top_token_share": float(counts.max() / tokens.size)}
+
+
+def motif_agreement(cfg, teacher, tparams, students: dict, steps: int) -> dict:
+    """On DISTILL_PROMPTS motif prompts (`motif_prompts`): the teacher's
+    rollout (its stream's `stream_stats`; `tail_hits`, the share of the
+    motif tails it reproduces in its first steps) and, for each student,
+    its agreement with the teacher over all `steps` (`all`) and over the
+    tail's steps alone (`tail`), where the teacher continues a motif."""
+    prompts, tails = motif_prompts(cfg, DISTILL_PROMPTS, DISTILL_PROMPT_LEN)
+    stream, picks = motif_rollout(cfg, teacher, tparams, students, prompts, steps)
+    k = tails.shape[1]
+    return {"teacher": {**stream_stats(stream),
+                        "tail_hits": float((stream[:, :k] == tails).mean())},
+            **{name: {"all": float((p == stream).mean()),
+                      "tail": float((p[:, :k] == stream[:, :k]).mean())}
+               for name, p in picks.items()}}
+
+
+def distill_formula_gaps(lg: torch.Tensor, tl: torch.Tensor, targets: torch.Tensor,
+                         vocab: int) -> dict:
+    """`distill.distill_terms`' per-token KL at T 1 and 2 and its CE
+    against torch's own `F.kl_div` and `F.cross_entropy` over the true
+    vocab (sliced, not masked), on the same logits: each largest gap over
+    the term's largest value. A KL, temperature or CE line written wrong
+    moves these; the kernels cannot, both sides read the same logits."""
+    gaps = {}
+    for T in (1.0, 2.0):
+        terms = distill.distill_terms(lg, tl, targets, vocab, T)
+        logp_s = F.log_softmax(lg[..., :vocab].float() / T, dim=-1)
+        logp_t = F.log_softmax(tl[..., :vocab].float() / T, dim=-1)
+        kl = T * T * F.kl_div(logp_s, logp_t, reduction="none", log_target=True).sum(-1)
+        gaps[f"kl_T{T:g}"] = float((terms["kl"] - kl).abs().max() / kl.abs().max())
+    ce = F.cross_entropy(lg[..., :vocab].float().flatten(0, 1), targets.flatten().long(),
+                         reduction="none").view(targets.shape)
+    gaps["ce"] = float((terms["ce"] - ce).abs().max() / ce.abs().max())
+    return gaps
+
+
+def distill_step_zero(cfg, tparams) -> dict:
+    """Step 0 of the distillation at full width on the card (the trained
+    teacher, the student at its init from seed 1 as `distill_student`
+    draws it, the first distillation batch), once through the kernels and
+    once through their plain versions (`PlainDispatcher`): the teacher's
+    logits, each token's KL and CE (`distill.distill_terms`), the loss of
+    `make_distill_loss` and every student gradient leaf; on the kernels'
+    logits also `distill_formula_gaps`. The routes must be all cuda, then
+    all torch."""
+    d = distill_recipe()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=d["seq"], global_batch=d["batch"])).batch(
+        distill.STUDENT_STEP_OFFSET).items()}
+    runs = []
+    for disp in (KernelDispatcher(), PlainDispatcher()):
+        teacher = build_model(cfg, disp, device="cuda")
+        student = build_model(draft_of(cfg), disp, device="cuda")
+        sparams = student.init(torch.Generator(device="cuda").manual_seed(1))
+        tl = distill.make_teacher_logits_fn(teacher)(tparams, batch["tokens"])
+        named = leaves_with_path(sparams)
+        for _, t in named:
+            t.requires_grad_(True)
+        loss_fn = distill.make_distill_loss(student, cfg.vocab, kl_weight=d["kl_weight"],
+                                            temperature=d["temperature"])
+        loss, _ = loss_fn(sparams, {**batch, "teacher_logits": tl})
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+        with torch.no_grad():
+            lg = distill._full_logits(student, sparams, batch["tokens"])
+            terms = distill.distill_terms(lg, tl, batch["targets"], cfg.vocab, d["temperature"])
+            if not runs:
+                formula = distill_formula_gaps(lg, tl, batch["targets"], cfg.vocab)
+        backend = "torch" if isinstance(disp, PlainDispatcher) else "cuda"
+        if {r.backend for r in disp.routes} != {backend}:
+            raise AssertionError(f"distill step-0 routes {disp.census()}")
+        runs.append((float(loss.detach()), tl, terms["kl"], terms["ce"],
+                     {p: g for (p, _), g in zip(named, grads) if g is not None}))
+        del teacher, student, sparams, named, loss, grads, terms, lg
+        release_memory()
+    (k_loss, k_tl, k_kl, k_ce, k_grads), (p_loss, p_tl, p_kl, p_ce, p_grads) = runs
+    if k_grads.keys() != p_grads.keys():
+        raise AssertionError("the kernels' and the plain versions' gradients reach other leaves")
+    rel = {p: float((k_grads[p].float() - g.float()).abs().max()
+                    / g.float().abs().max().clamp_min(1e-30)) for p, g in p_grads.items()}
+    worst = max(rel, key=rel.get)
+    rec = {"loss_step0_kernels": k_loss, "loss_step0_plain": p_loss,
+           "logit_max_abs_diff": float((k_tl - p_tl).abs().max()),
+           "logit_max_abs": float(p_tl.abs().max()),
+           "logit_rel_diff": float((k_tl - p_tl).abs().max() / p_tl.abs().max()),
+           "kl_token_max_abs_diff": float((k_kl - p_kl).abs().max()),
+           "kl_token_mean": float(p_kl.mean()),
+           "ce_token_max_abs_diff": float((k_ce - p_ce).abs().max()),
+           "ce_token_mean": float(p_ce.mean()),
+           "grad_leaves": len(rel), "grad_worst_leaf": worst, "grad_worst_rel": rel[worst],
+           "grad_median_rel": statistics.median(rel.values()), "formula": formula,
+           "limits": {"logit_rel": DISTILL_LOGIT_RTOL, "kl_token_atol": DISTILL_KL_ATOL,
+                      "ce_token_atol": DISTILL_CE_ATOL, "grad_rel": DISTILL_GRAD_RTOL,
+                      "formula_rel": DISTILL_FORMULA_RTOL}}
+    del runs, k_grads, p_grads
+    release_memory()
+    return rec
+
+
+def run_distill(cfg, root: Path) -> None:
+    """The distill phase's gates, in order: (1) step 0 through the kernels
+    within the DISTILL_* limits of the plain versions (`distill_step_zero`);
+    (2) whole runs: the teacher and the student take exactly their step
+    counts (the logged losses and the timed steps), nothing restarted, the
+    teacher's loss falls, every route cuda and every launch the steps
+    imply (`distill_launches`); (3) the teacher completes the motif tails
+    (`motif_agreement`: DISTILL_TAIL_HITS, DISTILL_TOP_SHARE) and the
+    distilled student's rollout agreement, the reference's and on the
+    tails, is at least DISTILL_AGREE_MARGIN above the student's at its
+    init; (4) `load_teacher` restores the teacher bit for bit, the
+    student's metadata carries the reference's keys and the run's
+    agreement; (5) `--ckpt teacher/ --schedule spec --draft shrink
+    --draft-ckpt student/` at branches 1 and 2 on the motif prompts: the
+    streams of the `--ckpt teacher/` continuous serve (more than one
+    distinct token), acceptance above the random-init
+    shrink drafter's (served here too), exact launches; (6) the same with
+    the student packed as int4_palette: the drafter's matmuls on palette."""
+    d = distill_recipe()
+    eval_steps = 12
+    dense, packed = root / "dense", root / "int4"
+    release_memory()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    flags = [a for k, v in DISTILL_FLAGS.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+    out = distill.run(["--arch", cfg.name, *flags, "--ckpt-dir", str(dense), "--log-every", "1",
+                       "--eval-steps", str(eval_steps), "--device", "cuda"])
+    run_s = time.perf_counter() - t0
+    launches = {k: n for k, n in native.launch_counts().items() if n}
+    want_launches, per_step = distill_launches(cfg, d["teacher_steps"], d["steps"], eval_steps)
+    thist, hist = out["teacher_history"], out["loss_history"]
+    tparams, sparams = out["teacher_params"], out["student_params"]
+    failures = []
+    if not (len(thist) == len(out["teacher_step_s"]) == d["teacher_steps"]
+            and len(hist) == len(out["step_s"]) == d["steps"]):
+        failures.append(f"runs not whole: teacher {len(thist)} losses / "
+                        f"{len(out['teacher_step_s'])} steps, student {len(hist)} / "
+                        f"{len(out['step_s'])}")
+    if not statistics.mean(thist[-10:]) < statistics.mean(thist[:10]):
+        failures.append(f"the teacher's loss did not fall: {thist[:3]} .. {thist[-3:]}")
+    if {b for _, b in out["routes"]} != {"cuda"} or launches != want_launches:
+        failures.append(f"routes {out['routes']}, launches {launches}, expected "
+                        f"{want_launches}")
+    release_memory()
+    step0 = distill_step_zero(cfg, tparams)
+    if step0["logit_rel_diff"] > DISTILL_LOGIT_RTOL or \
+            step0["kl_token_max_abs_diff"] > DISTILL_KL_ATOL or \
+            step0["ce_token_max_abs_diff"] > DISTILL_CE_ATOL or \
+            step0["grad_worst_rel"] > DISTILL_GRAD_RTOL or \
+            max(step0["formula"].values()) > DISTILL_FORMULA_RTOL:
+        failures.append(f"step 0 off the plain versions: {step0}")
+    teacher = build_model(cfg, KernelDispatcher(), device="cuda")
+    student = build_model(draft_of(cfg), teacher.dispatcher, device="cuda")
+    at_init = student.init(torch.Generator(device="cuda").manual_seed(1))
+    untrained = distill.rollout_agreement(cfg, teacher, tparams, student, at_init,
+                                          steps=eval_steps, seed=7)
+    motif = motif_agreement(cfg, teacher, tparams, {"trained": (student, sparams),
+                                                    "init": (student, at_init)}, eval_steps)
+    del teacher, student, at_init
+    if not out["agreement"] >= untrained + DISTILL_AGREE_MARGIN:
+        failures.append(f"agreement {out['agreement']} against {untrained} at init")
+    if not (motif["teacher"]["tail_hits"] >= DISTILL_TAIL_HITS
+            and motif["teacher"]["top_token_share"] <= DISTILL_TOP_SHARE):
+        failures.append(f"the teacher did not learn the motifs: {motif['teacher']}")
+    if not motif["trained"]["tail"] >= motif["init"]["tail"] + DISTILL_AGREE_MARGIN:
+        failures.append(f"agreement on the motif tails {motif['trained']} against "
+                        f"{motif['init']} at init")
+    release_memory()
+    t0 = time.perf_counter()
+    _, loaded = distill.load_teacher(cfg, str(dense / "teacher"), device="cuda")
+    load_s = time.perf_counter() - t0
+    got, want = leaves_with_path(loaded), leaves_with_path(tparams)
+    restored = [p for p, _ in got] == [p for p, _ in want] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
+    del loaded, got, want
+    meta = CheckpointManager(str(dense / "student")).metadata()
+    meta_ok = set(meta) == {"role", "arch", "vocab", "d_model", "n_layers", "weight_form",
+                            "target_arch", "agreement_top1"} and \
+        meta["agreement_top1"] == out["agreement"] and meta["role"] == "draft-student"
+    if not (restored and meta_ok):
+        failures.append(f"teacher restored bit for bit: {restored}; student metadata {meta}")
+    t0 = time.perf_counter()
+    distill.save_student(str(packed), cfg, sparams, d["steps"], weight_form="int4_palette",
+                         agreement=out["agreement"])
+    pack_save_s = time.perf_counter() - t0
+    step_dir = lambda sub, step: dense / sub / f"step_{step:09d}"  # noqa: E731
+    rec = {"config": cfg.name, "student": draft_of(cfg).name, "teacher_layers": cfg.n_layers,
+           "student_layers": draft_of(cfg).n_layers, **{k: d[k] for k in d},
+           "run_s": run_s, "teacher_history": thist, "loss_history": hist,
+           "teacher_step_ms_median": statistics.median(out["teacher_step_s"][1:]) * 1e3,
+           "student_step_ms_median": statistics.median(out["step_s"][1:]) * 1e3,
+           "teacher_step_ms_first": out["teacher_step_s"][0] * 1e3,
+           "peak_memory_gb": out["peak_memory_gb"], "save_s": out["save_s"],
+           "int4_pack_save_s": pack_save_s, "load_teacher_s": load_s,
+           "checkpoint_bytes": {"teacher": checkpoint_bytes(step_dir("teacher",
+                                                                     d["teacher_steps"])),
+                                "student": checkpoint_bytes(step_dir("student", d["steps"])),
+                                "student_int4": checkpoint_bytes(
+                                    packed / "student" / f"step_{d['steps']:09d}")},
+           "agreement": out["agreement"], "agreement_at_init": untrained,
+           "motif_agreement": motif, "agree_margin": DISTILL_AGREE_MARGIN, "teacher_restored": restored,
+           "student_metadata": meta, "routes": {f"{k}/{b}": n for (k, b), n in
+                                                out["routes"].items()},
+           "launches": launches, "launches_per_step": per_step, "step0": step0,
+           "step0_equals_cli": step0["loss_step0_kernels"] == hist[0]}
+    del out, tparams, sparams
+    release_memory()
+    prompts = [list(motif_prompts(cfg, DISTILL_PROMPTS, DISTILL_PROMPT_LEN)[0])]
+    ckpt = ("--ckpt", str(dense / "teacher"))
+    cont = serve_schedule(cfg, "distill continuous", serve_argv(cfg, 1, "fp16") + list(ckpt),
+                          None, prompts=prompts)
+    want_tokens = cont["tokens"]
+    serves = {"continuous": {"tok_per_s": cont["tok_per_s"], **stream_stats(want_tokens)}}
+    del cont
+    if not serves["continuous"]["distinct_tokens"] > 1:
+        failures.append(f"the served stream is one token: {serves['continuous']}")
+    for branches in (1, 2):
+        for label, extra in (("distilled", ckpt + ("--draft-ckpt", str(dense / "student"))),
+                             ("random-init", ckpt)):
+            _, sp = serve_spec(cfg, "shrink", branches, want_tokens, extra=extra,
+                               prompts=prompts, label=label)
+            serves[f"{label} x{branches}"] = {
+                "acceptance_rate": sp["acceptance_rate"], "tok_per_s": sp["tok_per_s"],
+                "trained": sp["engine"].drafter.trained}
+            del sp
+        if not serves[f"distilled x{branches}"]["acceptance_rate"] > \
+                serves[f"random-init x{branches}"]["acceptance_rate"]:
+            failures.append(f"x{branches}: acceptance {serves[f'distilled x{branches}']} not "
+                            f"above the random-init drafter's {serves[f'random-init x{branches}']}")
+    packed_launches, sp = serve_spec(cfg, "shrink", 1, want_tokens,
+                                     extra=ckpt + ("--draft-ckpt", str(packed / "student")),
+                                     prompts=prompts, draft_form="int4_palette",
+                                     label="distilled int4_palette")
+    serves["distilled int4_palette x1"] = {
+        "acceptance_rate": sp["acceptance_rate"], "tok_per_s": sp["tok_per_s"],
+        "palette_launches": packed_launches["palette"], "trained": sp["engine"].drafter.trained}
+    del sp
+    if not packed_launches["palette"] > 0:
+        failures.append(f"int4_palette student: launches {packed_launches}")
+    emit("distill", **rec, serves=serves, prompts=DISTILL_PROMPTS,
+         prompt_len=DISTILL_PROMPT_LEN, gen=SERVE_GEN, draft_depth=SPEC_DEPTH,
+         failures=failures)
+    if failures:
+        raise AssertionError("distill phase: " + "; ".join(failures))
+
+
+def run_distill_phase() -> None:
+    """The distill phase (`run_distill`), its checkpoints under a temporary
+    directory of build/."""
+    cfg = configs.get_config(DISTILL_ARCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="distill_", dir=ROOT / "build"))
+    try:
+        run_distill(cfg, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     release_memory()

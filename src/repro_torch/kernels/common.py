@@ -1,7 +1,8 @@
-"""Shared by the matmul kernel wrappers: the packed kernels' operand checks,
-and the plan of the streaming tile loop (`csrc/tile_matmul.cuh`, namespace
-`tile::stream`) that every 16-bit product runs: bf16 / fp16 `anemm` and
-`conv2d`, bf16 `sparse` and `palette`.
+"""Shared by the matmul kernel wrappers: the packed kernels' operand checks
+and forward-only gate, and the plan of the streaming tile loop
+(`csrc/tile_matmul.cuh`, namespace `tile::stream`) that every 16-bit
+product runs: bf16 / fp16 `anemm` and `conv2d`, bf16 `sparse` and
+`palette`.
 
 The plan has two halves. `chunk_plan` fixes the sum order: K cut into at
 most `MAX_CHUNKS` chunks, each a multiple of `STREAM_BK`; a chunk's partial
@@ -26,6 +27,14 @@ STREAM_BN = 64                  # weight columns a block owns
 STREAM_ROWS = (8, 16, 32, 64)   # activation rows a block may own (the kernel's BM)
 MAX_CHUNKS = 8                  # chunks a plan may have: a portable cluster
 SPLIT_TILES = 132               # fewer output tiles than SMs: chunks go to a cluster
+
+
+def forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where a gradient is asked of `tensors`: packed weights, the
+    pools and an unfused `act_lut` have no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{what} is forward-only: no gradient flows through it "
+                         "(the reference trains dense weights only)")
 
 
 class ChunkPlan(NamedTuple):

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.dispatch import KernelDispatcher
 from repro_torch.core.hal import WeightForm
+from repro_torch.kernels.common import forward_only
 from repro_torch.kernels.palette import palette_matmul as pm
 from repro_torch.kernels.palette.ref import palette_matmul_ref
 from repro_torch.kernels.sparse import sparse_matmul as sm
@@ -228,12 +229,6 @@ def route_and_run(disp: KernelDispatcher, name: str, x: torch.Tensor,
     return native() if route.native else oracle()
 
 
-def _forward_only(what: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{what} is forward-only: no gradient flows through it "
-                         "(the reference trains dense weights only)")
-
-
 def _matmul_dense(disp: KernelDispatcher, a2: torch.Tensor,
                   w2: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.anemm import ops as anemm_ops
@@ -251,7 +246,7 @@ def _matmul_dense(disp: KernelDispatcher, a2: torch.Tensor,
 
 def _matmul_packed(disp: KernelDispatcher, a2: torch.Tensor,
                    w: DispatchedWeight) -> torch.Tensor:
-    _forward_only(f"a packed {w.form.value} weight", a2, *w.payload.values())
+    forward_only(f"a packed {w.form.value} weight", a2, *w.payload.values())
     spec, args = w.spec, w.spec.args(w.payload)
     return route_and_run(disp, w.kernel, a2, lambda: spec.run(a2, *args),
                          lambda: spec.plain(a2, *args))
@@ -341,7 +336,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *
                            epilogue_table=table))
     if act is None or epilogue is not None:
         return out
-    _forward_only("an unfused act_lut", out)
+    forward_only("an unfused act_lut", out)
     return route_and_run(disp, "act_lut", out, lambda: lut_activation(act)(out),
                          lambda: lut_apply_ref(out, act))
 
@@ -353,7 +348,7 @@ def _pool(x: torch.Tensor, *, window, stride, padding, kind: str) -> torch.Tenso
     native = getattr(conv_ops, kind)
     plain = getattr(conv_ref, f"{kind}_ref")
     disp = _require_dispatcher(f"{kind}()")
-    _forward_only(kind, x)
+    forward_only(kind, x)
     return route_and_run(
         disp, kind, x,
         lambda: native(x, window=window, stride=stride, padding=padding),

@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 A fresh interpreter imports `repro_torch` and every submodule and must not
-have pulled `jax` in; an AST scan of the port's sources and `chip_smoke.py`
-rejects any import of `jax`, `jaxlib` or `repro` / `repro.*`.
+have pulled `jax` in; an AST scan of the port's sources, `chip_smoke.py`
+and `chip_distill_recipes.py` rejects any import of `jax`, `jaxlib` or `repro` / `repro.*`.
 """
 
 import _torch_threads  # noqa: F401
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_sources() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_distill_recipes.py"]
 
 
 def _modules() -> list[str]:
